@@ -1,0 +1,69 @@
+// Shared helpers for the port's attention kernels.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace teola {
+
+// Masked-score sentinel of the reference kernels (finite, so that
+// exp(NEG_INF - NEG_INF) = 1 and exp(NEG_INF - m) = 0 as in Pallas).
+constexpr float NEG_INF = -2.0e38f;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Scale, optional tanh softcap (cap <= 0: none), in the reference's order.
+__device__ __forceinline__ float score(float dot, float scale, float cap) {
+  float s = dot * scale;
+  if (cap > 0.f) s = cap * tanhf(s / cap);
+  return s;
+}
+
+}  // namespace teola
+
+// Dtype codes shared with the Python wrappers (repro_torch/kernels/build.py).
+#define TEOLA_F32 0
+#define TEOLA_BF16 1
+
+// Instantiate LAUNCH<HD, TQ, TKV>(...) for hd in {64, 128}, q in
+// {float32, bfloat16}, k/v in {float32, bfloat16}; unsupported
+// combinations return cudaErrorInvalidValue.
+#define TEOLA_DISPATCH(hd, qd, kvd, LAUNCH, ...)                            \
+  do {                                                                      \
+    if (hd == 64) {                                                         \
+      if (qd == TEOLA_F32 && kvd == TEOLA_BF16)                             \
+        return LAUNCH<64, float, __nv_bfloat16>(__VA_ARGS__);               \
+      if (qd == TEOLA_BF16 && kvd == TEOLA_BF16)                            \
+        return LAUNCH<64, __nv_bfloat16, __nv_bfloat16>(__VA_ARGS__);       \
+      if (qd == TEOLA_F32 && kvd == TEOLA_F32)                              \
+        return LAUNCH<64, float, float>(__VA_ARGS__);                       \
+      if (qd == TEOLA_BF16 && kvd == TEOLA_F32)                             \
+        return LAUNCH<64, __nv_bfloat16, float>(__VA_ARGS__);               \
+    } else if (hd == 128) {                                                 \
+      if (qd == TEOLA_F32 && kvd == TEOLA_BF16)                             \
+        return LAUNCH<128, float, __nv_bfloat16>(__VA_ARGS__);              \
+      if (qd == TEOLA_BF16 && kvd == TEOLA_BF16)                            \
+        return LAUNCH<128, __nv_bfloat16, __nv_bfloat16>(__VA_ARGS__);      \
+      if (qd == TEOLA_F32 && kvd == TEOLA_F32)                              \
+        return LAUNCH<128, float, float>(__VA_ARGS__);                      \
+      if (qd == TEOLA_BF16 && kvd == TEOLA_F32)                             \
+        return LAUNCH<128, __nv_bfloat16, float>(__VA_ARGS__);              \
+    }                                                                       \
+    return (int)cudaErrorInvalidValue;                                      \
+  } while (0)
+
+extern "C" const char* kernel_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

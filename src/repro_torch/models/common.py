@@ -1,0 +1,103 @@
+"""Shared building blocks: norms, activations, RoPE, initializers.
+
+PyTorch counterpart of ``repro/models/common.py``: the same arithmetic, in
+float32 where the reference computes in float32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts/lists (params, caches) of
+    the same structure."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *[t[k] for t in trees]) for k in t0}
+    if isinstance(t0, (list, tuple)):
+        return [tree_map(fn, *xs) for xs in zip(*trees)]
+    return fn(*trees)
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(dtype)
+
+
+def _gelu_tanh(x):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def act_fn(name: str):
+    return {"silu": F.silu, "gelu": _gelu_tanh, "relu": F.relu}[name]
+
+
+def softcap(x, cap):
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+
+def rope_freqs(head_dim: int, theta: float, rotary_dim: int | None = None,
+               device=None):
+    rd = rotary_dim if rotary_dim is not None else head_dim
+    exps = torch.arange(0, rd, 2, dtype=torch.float32, device=device) / rd
+    return 1.0 / (theta ** exps)     # (rd/2,)
+
+
+def apply_rope(x, positions, theta: float, kind: str = "neox"):
+    """x: (B, S, H, hd) or (B, S, hd); positions: (S,) or (B, S) int.
+
+    kind: 'neox' rotates the full head dim (half-split layout),
+          'none' is identity. ('half', ChatGLM's 2D RoPE, is not ported
+          yet: ROADMAP.md Queue 1, item 10.)
+    """
+    if kind == "none":
+        return x
+    if kind != "neox":
+        raise NotImplementedError(
+            f"rope kind {kind!r} is not ported yet (ROADMAP.md Queue 1, "
+            f"item 10)")
+    hd = x.shape[-1]
+    inv = rope_freqs(hd, theta, hd, device=x.device)
+    positions = torch.as_tensor(positions, device=x.device)
+    if positions.ndim == 1:
+        positions = positions[None]     # (1, S)
+    ang = positions.float()[..., None] * inv          # (B|1, S, hd/2)
+    if x.ndim == 4:                     # head axis present
+        ang = ang[..., None, :]         # (B|1, S, 1, hd/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
+    r1 = x1 * cos - x2 * sin
+    r2 = x2 * cos + x1 * sin
+    return torch.cat([r1.to(x.dtype), r2.to(x.dtype)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Init helpers: the shapes and scales of the reference's initializers, drawn
+# from an explicit torch.Generator (the numbers differ from jax.random's).
+
+def dense_init(generator, shape, dtype, device, scale: float | None = None,
+               fan_in: int | None = None):
+    """``fan_in`` defaults to shape[0]; stacked (repeat-leading) weights
+    pass the per-layer fan-in."""
+    if fan_in is None:
+        fan_in = shape[0] if len(shape) >= 2 else shape[-1]
+    std = (scale if scale is not None else 1.0) / (fan_in ** 0.5)
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device) * std
+    return w.to(device=device, dtype=dtype)
+
+
+def embed_init(generator, shape, dtype, device):
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device) * 0.02
+    return w.to(device=device, dtype=dtype)

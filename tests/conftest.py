@@ -15,6 +15,11 @@ from repro.configs.base import list_configs  # noqa: E402
 ASSIGNED = [a for a in list_configs() if not a.startswith("tiny-")]
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (skipped without)")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.key(0)

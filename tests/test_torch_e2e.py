@@ -1,0 +1,86 @@
+"""The slice end to end: one naive-RAG query under Teola on the reference's
+real engines and on the port's (CPU) engines holding the same weights.
+Both must build the same e-graph, retrieve the same chunks and decode the
+same answer tokens."""
+from collections import Counter
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.core.apps import build_engines, naive_rag  # noqa: E402
+from repro.core.teola import Teola  # noqa: E402
+from repro.training.data import doc_corpus  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.core import apps as tapps  # noqa: E402
+from repro_torch.core.teola import Teola as TTeola  # noqa: E402
+
+Q = {"question": "what is fact 3 about optics", "docs": doc_corpus(2)}
+
+
+def _port_engines_like(ref):
+    """The port's engines dict, each model engine holding the reference
+    engine's weights."""
+    port = tapps.build_engines(device="cpu")
+    for name in ("core_llm", "lite_llm"):
+        tree = jax.tree.map(np.asarray, ref[name].params)
+        port[name].params = bridge.decoder_params(tree, port[name].cfg, "cpu")
+    for name in ("embedding", "rerank"):
+        tree = jax.tree.map(np.asarray, ref[name].params)
+        port[name].params = bridge.encoder_params(tree, port[name].cfg, "cpu")
+    return port
+
+
+def _run(teola_cls, engines, **kw):
+    teola = teola_cls(naive_rag(engines) if teola_cls is Teola
+                      else tapps.naive_rag(engines), engines, **kw)
+    try:
+        g = teola.build_egraph(dict(Q))
+        out, ctx = teola.query(dict(Q), timeout=600)
+    finally:
+        teola.shutdown()
+    assert ctx.error is None
+    return {"ops": Counter(n.op for n in g.nodes.values()),
+            "retrieved": [c["text"] for c in ctx.store["retrieved"]],
+            "answer": out}
+
+
+@pytest.fixture(scope="module")
+def runs():
+    ref = build_engines()
+    port = _port_engines_like(ref)
+    return {"ref": _run(Teola, ref), "port": _run(TTeola, port),
+            "port_engines": port}
+
+
+def test_naive_rag_same_egraph(runs):
+    assert runs["port"]["ops"] == runs["ref"]["ops"]
+
+
+def test_naive_rag_same_retrieved_chunks(runs):
+    assert runs["port"]["retrieved"] == runs["ref"]["retrieved"]
+    assert "optics" in " ".join(runs["port"]["retrieved"])
+
+
+def test_naive_rag_same_answer_tokens(runs):
+    ans = runs["port"]["answer"]
+    assert isinstance(ans, str) and ans
+    assert ans == runs["ref"]["answer"]
+
+
+def test_port_continuous_batching_same_answer(runs):
+    """Decodes admitted into the engines' continuous loop emit the same
+    tokens as the run-to-completion batches."""
+    got = _run(TTeola, runs["port_engines"], continuous_batching=True)
+    assert got["answer"] == runs["port"]["answer"]
+
+
+@pytest.mark.parametrize("kw", [{"fault_tolerance": object()},
+                                {"overload": object()}])
+def test_port_runtime_rejects_unported_serving_layers(runs, kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TTeola(tapps.naive_rag(runs["port_engines"]), runs["port_engines"],
+               **kw)
