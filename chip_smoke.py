@@ -7,14 +7,21 @@ Phases, in order; any failure exits non-zero:
   1. toolchain: the card (nvidia-smi), torch / CUDA versions, nvcc, triton.
   2. build: nvcc compiles every kernel source, all at once.
   3. kernels: each hand-written kernel against its plain PyTorch version on
-     the card, at the main path's shapes (TinyLlama-1.1B heads), then timed
-     beside its plain version and one library call.
+     the card, at the main paths' shapes (TinyLlama-1.1B heads; the paged
+     kernels over a 129-block x 16 bf16 pool with shuffled physical blocks
+     and two rows sharing prefix blocks), then timed beside its plain
+     version and one library call.
   4. model: TinyLlama-1.1B at full width cut to 2 layers (random weights
      from a seeded torch.Generator): prefill, Pass-3 partial prefill and
      decode on the card through the kernels, against the same code on the
-     CPU.
-  5. serve (the main path): naive-RAG under Teola with the full 22-layer
+     CPU; then the same on a paged pool (plus a speculative verify chunk),
+     against the dense path on the card and the paged path on the CPU.
+  5. serve, the dense path: naive-RAG under Teola with the full 22-layer
      TinyLlama-1.1B as the core LLM; 1 warm-up query, then 4 together.
+  6. serve, the paged path: the same app and model under Teola with
+     continuous batching, the core LLM on paged KV with the radix prefix
+     cache, chunked prefill (128-token chunks) and prompt-lookup
+     speculative decoding (k=3); 1 warm-up query, then 4 together.
 
 Before the last line it prints a JSON line of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -25,6 +32,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -45,10 +53,15 @@ from repro_torch.core.apps import build_engines, naive_rag  # noqa: E402
 from repro_torch.core.teola import Teola  # noqa: E402
 from repro_torch.engines.llm_engine import LLMEngine  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.chunk_prefill import (  # noqa: E402
+    chunk_prefill_attention, chunk_prefill_attention_plain)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_plain)
 from repro_torch.kernels.flash_prefill import (flash_prefill,  # noqa: E402
                                                flash_prefill_plain)
+from repro_torch.kernels.paged_attention import (  # noqa: E402
+    paged_decode_attention, paged_decode_attention_plain, paged_gather,
+    verify_attention, verify_attention_plain)
 from repro_torch.models.transformer import apply_model, init_params  # noqa: E402
 from repro_torch.serving import kv_cache as kvc  # noqa: E402
 from repro_torch.training.data import doc_corpus  # noqa: E402
@@ -64,7 +77,9 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # CPU's matmuls can round to a neighbouring bf16 value
 MODEL_TOL = 1e-2
 H, K, HD, T = 32, 4, 64, 512          # TinyLlama-1.1B attention, max_len
+NB, BS = 129, 16                      # the serve path's paged pool
 SEED = 0
+PAGED = [paged_decode_attention, verify_attention, chunk_prefill_attention]
 
 
 def card_line() -> str:
@@ -279,6 +294,131 @@ def phase_kernels(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3, paged kernels (K3 verify, K4 paged decode, K5 chunked prefill)
+
+PAGED_PLAIN = {paged_decode_attention: paged_decode_attention_plain,
+               verify_attention: verify_attention_plain,
+               chunk_prefill_attention: chunk_prefill_attention_plain}
+
+
+def _pool_and_tables(B, dev):
+    """A bf16 (NB, BS, K, HD) K/V pool pair and (B, T/BS) tables of
+    shuffled physical blocks, rows 0 and 1 sharing their first 4 blocks
+    as a copy-on-write fork would."""
+    rs = np.random.RandomState(SEED + B)
+    kp, vp = [torch.from_numpy(rs.standard_normal((NB, BS, K, HD)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(2)]
+    t = rs.permutation(np.arange(1, NB))[:B * (T // BS)].reshape(B, -1)
+    if B > 1:
+        t[1, :4] = t[0, :4]
+    return kp, vp, torch.tensor(t, dtype=torch.int32, device=dev)
+
+
+def _paged_case(fn, B, Sq, pos, dev, qdt=torch.float32):
+    """Inputs of one paged kernel call: pos is the per-row length (K3,
+    K4) or chunk start (K5)."""
+    rs = np.random.RandomState(B * 100 + Sq)
+    shape = (B, H, HD) if fn is paged_decode_attention else (B, Sq, H, HD)
+    q = torch.from_numpy(rs.standard_normal(shape).astype(np.float32)).to(
+        dev, qdt)
+    kp, vp, t = _pool_and_tables(B, dev)
+    return q, kp, vp, t, torch.tensor(pos, dtype=torch.int32, device=dev)
+
+
+def _query_positions(fn, q, pos):
+    """(B, Sq) absolute positions of the call's query rows."""
+    Sq = 1 if q.dim() == 3 else q.shape[1]
+    first = pos.long() if fn is chunk_prefill_attention else pos.long() - Sq
+    return first[:, None] + torch.arange(Sq, device=q.device)[None, :]
+
+
+def _paged_work(fn, q, pos):
+    """Bytes (q in, o out, the table-addressed bf16 K/V rows the data
+    needs) and flops (4*hd per query-head/key pair) of one call."""
+    qpos = _query_positions(fn, q, pos)
+    rows = int((qpos[:, -1] + 1).sum())
+    nbytes = q.numel() * q.element_size() * 2 + rows * K * HD * 2 * 2
+    flops = 4 * HD * H * int((qpos + 1).sum())
+    return nbytes, flops
+
+
+def _sdpa_paged(fn, q, kp, vp, t, pos):
+    """One library call computing the kernel's function on the
+    PRE-GATHERED linear view (timed only, never used by the port; the
+    gather itself is not timed: no single PyTorch call reads through a
+    block table)."""
+    kh = paged_gather(kp, t).float().transpose(1, 2).contiguous()
+    vh = paged_gather(vp, t).float().transpose(1, 2).contiguous()
+    qh = q[:, :, None] if q.dim() == 3 else q.transpose(1, 2)
+    qpos = _query_positions(fn, q, pos)
+    mask = (torch.arange(kh.shape[2], device=q.device)[None, None, :]
+            <= qpos[:, :, None])[:, None]
+    return _sdpa(qh, kh, vh, mask)
+
+
+def phase_paged_kernels(dev) -> dict:
+    """K3, K4 and K5 against their plain versions, then timed. Returns
+    {kernel: {max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms}} at the representative serve-path shape."""
+    res = {fn.__name__: {"max_abs_err": 0.0} for fn in PAGED}
+    lengths = [1, 130, 300, 512]
+    starts = [0, 37, 100, 200]
+    cases = []
+    for fn, Sq, pos in ((paged_decode_attention, 1, lengths),
+                        (verify_attention, 4, [4] + lengths[1:])):
+        cases += [(fn, 1, Sq, [300], None, None, torch.float32),
+                  (fn, 4, Sq, pos, None, None, torch.float32),
+                  (fn, 4, Sq, pos, 64, 50.0, torch.float32),
+                  (fn, 4, Sq, pos, None, None, torch.bfloat16)]
+    for Sq in (64, 128):
+        cases += [(chunk_prefill_attention, 1, Sq, [37], None, None,
+                   torch.float32),
+                  (chunk_prefill_attention, 4, Sq, starts, None, None,
+                   torch.float32)]
+    cases += [(chunk_prefill_attention, 4, 128, starts, 100, 50.0,
+               torch.float32),
+              (chunk_prefill_attention, 4, 64, starts, None, None,
+               torch.bfloat16)]
+    for fn, B, Sq, pos, window, cap, qdt in cases:
+        q, kp, vp, t, p = _paged_case(fn, B, Sq, pos, dev, qdt)
+        kw = dict(window=window, cap=cap)
+        got = fn(q, kp, vp, t, p, **kw)
+        torch.cuda.synchronize()
+        want = PAGED_PLAIN[fn](q, kp, vp, t, p, **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = TOL[qdt]
+        print(f"[kernels] {fn.__name__} B={B} Sq={Sq} pos={pos} "
+              f"window={window} cap={cap} q={str(qdt)[6:]}: max_abs_err "
+              f"{err:.3e} (tolerance {tol:g})")
+        if not (err <= tol):
+            raise AssertionError(f"{fn.__name__}: {err} > {tol}")
+        r = res[fn.__name__]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+
+    # timings at the representative serve-path shapes (batch bucket 4),
+    # the B=4 shape last so that it is the one reported
+    for fn, Sq, pos in ((paged_decode_attention, 1, [300]),
+                        (paged_decode_attention, 1, lengths),
+                        (verify_attention, 4, [300]),
+                        (verify_attention, 4, [4] + lengths[1:]),
+                        (chunk_prefill_attention, 64, starts),
+                        (chunk_prefill_attention, 128, starts)):
+        q, kp, vp, t, p = _paged_case(fn, len(pos), Sq, pos, dev)
+        plain = PAGED_PLAIN[fn]
+        ms = cuda_ms(lambda: fn(q, kp, vp, t, p))
+        plain_ms = cuda_ms(lambda: plain(q, kp, vp, t, p))
+        lib = cuda_ms(_sdpa_paged(fn, q, kp, vp, t, p))
+        bound, by = _bound(*_paged_work(fn, q, p))
+        print(f"[kernels] {fn.__name__} B={len(pos)} Sq={Sq} pos={pos} "
+              f"pool {NB}x{BS}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, sdpa on the pre-gathered view {lib:.4f} ms (gather "
+              f"not timed), bound {bound:.4f} ms ({by})")
+        res[fn.__name__].update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                bound_by=by, library_ms=lib)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 4: 2-layer TinyLlama-1.1B, card against CPU
 
 def two_layer_tinyllama():
@@ -288,22 +428,39 @@ def two_layer_tinyllama():
                                stages=(Stage(pattern=st.pattern, repeat=2),))
 
 
-def run_model(cfg, params, dev, toks):
+def run_model(cfg, params, dev, toks, *, paged=False, verify_tail=False):
     """Prefill 100 tokens, partial-prefill 40 more on the same cache, then
     8 decode steps, all fed fixed tokens (so both devices see the same
-    inputs). Returns the logits of every call, on the CPU."""
-    cache = kvc.init_cache(cfg, 1, T, device=dev)
+    inputs); with ``verify_tail`` one more 4-token chunk at 148. With
+    ``paged`` the cache is a paged pool read through a shuffled block
+    table and the tail is a speculative verify chunk. Returns the logits
+    of every call, on the CPU."""
+    sched = [(0, 100), (100, 140)] + [(140 + i, 141 + i) for i in range(8)]
+    tail = (148, 152)
+    if verify_tail:
+        sched.append(tail)
+    kw = {}
+    if paged:
+        cache = kvc.init_paged_pool(cfg, 1 + T // BS, BS, device=dev)
+        table = np.random.RandomState(SEED).permutation(
+            np.arange(1, 1 + T // BS))[None]
+        kw["block_tables"] = torch.tensor(table, dtype=torch.int32,
+                                          device=dev)
+    else:
+        cache = kvc.init_cache(cfg, 1, T, device=dev)
     outs = []
     with torch.inference_mode():
-        for lo, hi in ((0, 100), (100, 140)):
+        for lo, hi in sched:
             x = torch.as_tensor(toks[None, lo:hi], device=dev)
-            logits, cache = apply_model(cfg, params, x, cache, lo)
-            outs.append(logits.float().cpu())
-        for i in range(8):
-            x = torch.as_tensor(toks[None, 140 + i:141 + i], device=dev)
-            logits, cache = apply_model(cfg, params, x, cache, 140 + i)
+            logits, cache = apply_model(cfg, params, x, cache, lo,
+                                        verify=paged and (lo, hi) == tail,
+                                        **kw)
             outs.append(logits.float().cpu())
     return outs
+
+
+def _max_err(got, want):
+    return max((g - w).abs().max().item() for g, w in zip(got, want))
 
 
 def phase_model(dev):
@@ -311,7 +468,7 @@ def phase_model(dev):
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     params_cpu = init_params(cfg, gen, torch.float32, "cpu")
     params_dev = tree_to(params_cpu, dev)
-    toks = np.random.RandomState(SEED).randint(0, cfg.vocab_size, 148)
+    toks = np.random.RandomState(SEED).randint(0, cfg.vocab_size, 152)
     n0 = (flash_prefill.launches, decode_attention.launches)
     got = run_model(cfg, params_dev, dev, toks)
     torch.cuda.synchronize()
@@ -319,7 +476,7 @@ def phase_model(dev):
             != (2 * 2, 8 * 2):
         raise AssertionError("model phase did not run through the kernels")
     want = run_model(cfg, params_cpu, "cpu", toks)
-    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    err = _max_err(got, want)
     scale = max(w.abs().max().item() for w in want)
     finite = all(torch.isfinite(g).all().item() for g in got)
     print(f"[model] {cfg.name} (d={cfg.d_model}, H={cfg.num_heads}, "
@@ -327,6 +484,29 @@ def phase_model(dev):
           f"{err:.3e} over |logits| <= {scale:.3f} (tolerance {MODEL_TOL:g})")
     if not finite or not (err <= MODEL_TOL):
         raise AssertionError(f"model phase: err {err}, finite {finite}")
+
+    # the paged form: prefill 100 and a chunk of 40 (K5), 8 decode steps
+    # (K4), one verify chunk of 4 (K3), 2 layers each
+    n0 = [fn.launches for fn in PAGED]
+    paged = run_model(cfg, params_dev, dev, toks, paged=True,
+                      verify_tail=True)
+    torch.cuda.synchronize()
+    got_n = [fn.launches - n for fn, n in zip(PAGED, n0)]
+    if got_n != [8 * 2, 1 * 2, 2 * 2]:
+        raise AssertionError(f"paged model phase launched {got_n} "
+                             f"(K4, K3, K5), expected [16, 2, 4]")
+    dense = run_model(cfg, params_dev, dev, toks, verify_tail=True)
+    paged_cpu = run_model(cfg, params_cpu, "cpu", toks, paged=True,
+                          verify_tail=True)
+    e_dense, e_cpu = _max_err(paged, dense), _max_err(paged, paged_cpu)
+    finite = all(torch.isfinite(g).all().item() for g in paged)
+    print(f"[model] paged pool {1 + T // BS}x{BS}, shuffled table: card "
+          f"paged vs card dense max |dlogits| {e_dense:.3e}, card paged vs "
+          f"CPU paged {e_cpu:.3e} (tolerance {MODEL_TOL:g}); launches K4 "
+          f"{got_n[0]}, K3 {got_n[1]}, K5 {got_n[2]}")
+    if not finite or not (max(e_dense, e_cpu) <= MODEL_TOL):
+        raise AssertionError(f"paged model phase: {e_dense}, {e_cpu}, "
+                             f"finite {finite}")
 
 
 # ---------------------------------------------------------------------------
@@ -368,64 +548,158 @@ def _profiled_query(teola, docs, card: str):
         print(f"[profile]   {t / 1e3:9.3f} ms  {key[:90]}")
 
 
-def phase_serve(dev, card: str) -> dict:
-    torch.cuda.reset_peak_memory_stats()
-    engines = build_engines(device=dev)
-    engines["core_llm"] = LLMEngine("core_llm", get_config("tinyllama-1.1b"),
-                                    seed=SEED, max_batch=4, device=dev)
-    app = naive_rag(engines)
-    teola = Teola(app, engines)
-    docs = doc_corpus(2)
-    try:
-        flash_prefill.launches = 0
-        decode_attention.launches = 0
-        t0 = time.time()
-        _, ctx = teola.query({"question": "what is fact 1 about optics",
-                              "docs": docs}, timeout=600)
-        if ctx.error is not None:
-            raise ctx.error
-        warm = time.time() - t0
-        dec0 = engines["core_llm"].stats["decode_tokens"]
-        busy0 = _busy(engines)
-        t0 = time.time()
-        ctxs = [teola.submit({"question": q, "docs": docs})
-                for q in QUESTIONS]
-        for c in ctxs:
-            if not c.done.wait(600):
-                raise TimeoutError("serve query timed out")
-        wall = time.time() - t0
-        torch.cuda.synchronize()
-        launches = {"flash_prefill": flash_prefill.launches,
-                    "decode_attention": decode_attention.launches}
-        busy = {k: v - busy0[k] for k, v in _busy(engines).items()}
-        dec = engines["core_llm"].stats["decode_tokens"] - dec0
-        _profiled_query(teola, docs, card)
-    finally:
-        teola.shutdown()
+def _warm_up(teola, docs) -> float:
+    """1 warm-up query; returns its seconds."""
+    t0 = time.time()
+    _, ctx = teola.query({"question": "what is fact 1 about optics",
+                          "docs": docs}, timeout=600)
+    if ctx.error is not None:
+        raise ctx.error
+    return time.time() - t0
+
+
+def _run_window(teola, docs):
+    """The 4 questions submitted together. Returns (window seconds,
+    contexts)."""
+    t0 = time.time()
+    ctxs = [teola.submit({"question": q, "docs": docs}) for q in QUESTIONS]
+    for c in ctxs:
+        if not c.done.wait(600):
+            raise TimeoutError("serve query timed out")
+    wall = time.time() - t0
+    torch.cuda.synchronize()
+    return wall, ctxs
+
+
+def _check_answers(ctxs) -> list:
+    answers = []
     for c in ctxs:
         if c.error is not None:
             raise c.error
         ans = c.store.get("answer")
         if not isinstance(ans, str) or not ans:
             raise AssertionError(f"empty answer for {c.qid}: {ans!r}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
-    mem = torch.cuda.max_memory_allocated() / 2**30
+        answers.append(ans)
+    return answers
+
+
+def _layers(engines) -> int:
+    return sum(st.repeat for st in engines["core_llm"].cfg.stages)
+
+
+def _print_window(tag, warm, wall, ctxs, dec, busy, launches, card):
     nq = 1 + len(QUESTIONS)
-    print(f"[serve] core_llm tinyllama-1.1b, 22 layers, fp32 weights; "
-          f"warm-up query {warm:.3f} s [{card}]")
+    print(f"[{tag}] warm-up query {warm:.3f} s [{card}]")
     for c in ctxs:
-        print(f"[serve] {c.qid}: latency {c.latency:.3f} s, answer "
+        print(f"[{tag}] {c.qid}: latency {c.latency:.3f} s, answer "
               f"{len(c.store['answer'].split())} words [{card}]")
-    print(f"[serve] 4 queries in {wall:.3f} s; decode {dec} tokens, "
+    print(f"[{tag}] 4 queries in {wall:.3f} s; decode {dec} tokens, "
           f"{dec / wall:.1f} tokens/s over the window [{card}]")
-    print("[serve] engine busy seconds in the window (host clock): " +
+    print(f"[{tag}] engine busy seconds in the window (host clock): " +
           ", ".join(f"{k} {v:.3f}" for k, v in busy.items()))
-    print(f"[serve] max_memory_allocated {mem:.2f} GiB [{card}]")
-    print(f"[serve] kernel launches on the main path ({nq} queries): "
+    print(f"[{tag}] max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    print(f"[{tag}] kernel launches on this path ({nq} queries): "
           + ", ".join(f"{k} {n} ({n / nq:.1f} per query)"
                       for k, n in launches.items()))
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the {tag} "
+                                 f"path")
+
+
+def phase_serve(dev, card: str):
+    """The dense path. Returns (launches, answers)."""
+    torch.cuda.reset_peak_memory_stats()
+    engines = build_engines(device=dev)
+    engines["core_llm"] = LLMEngine("core_llm", get_config("tinyllama-1.1b"),
+                                    seed=SEED, max_batch=4, device=dev)
+    teola = Teola(naive_rag(engines), engines)
+    docs = doc_corpus(2)
+    kernels = [flash_prefill, decode_attention]
+    try:
+        for fn in kernels:
+            fn.launches = 0
+        warm = _warm_up(teola, docs)
+        dec0 = engines["core_llm"].stats["decode_tokens"]
+        busy0 = _busy(engines)
+        wall, ctxs = _run_window(teola, docs)
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        busy = {k: v - busy0[k] for k, v in _busy(engines).items()}
+        dec = engines["core_llm"].stats["decode_tokens"] - dec0
+        _profiled_query(teola, docs, card)
+    finally:
+        teola.shutdown()
+    answers = _check_answers(ctxs)
+    print(f"[serve] core_llm tinyllama-1.1b, {_layers(engines)} layers, "
+          f"fp32 weights, dense KV")
+    _print_window("serve", warm, wall, ctxs, dec, busy, launches, card)
+    return launches, answers
+
+
+def phase_serve_paged(dev, card: str, dense_answers):
+    """The paged path: paged KV + radix cache, chunked prefill, k=3
+    prompt-lookup speculation, continuous batching. Returns launches."""
+    torch.cuda.reset_peak_memory_stats()
+    opts = dict(paged_kv=True, chunked_prefill=True, prefill_chunk=128,
+                prefix_cache="radix")
+    engines = build_engines(device=dev, **opts)
+    core = LLMEngine("core_llm", get_config("tinyllama-1.1b"), seed=SEED,
+                     max_batch=4, device=dev, paged=True,
+                     chunked_prefill=True, prefill_chunk=128,
+                     prefix_cache="radix")
+    core.enable_speculative(draft=None, k=3)
+    engines["core_llm"] = core
+    teola = Teola(naive_rag(engines), engines, continuous_batching=True)
+    docs = doc_corpus(2)
+    try:
+        for fn in PAGED:
+            fn.launches = 0
+        warm = _warm_up(teola, docs)
+        dec0 = core.stats["decode_tokens"]
+        busy0 = _busy(engines)
+        wall, ctxs = _run_window(teola, docs)
+        launches = {fn.__name__: fn.launches for fn in PAGED}
+        busy = {k: v - busy0[k] for k, v in _busy(engines).items()}
+        dec = core.stats["decode_tokens"] - dec0
+        spec = dict(core.spec.stats)
+        radix = dict(core.radix.stats)
+        _profiled_query(teola, docs, card)
+    finally:
+        teola.shutdown()
+    answers = _check_answers(ctxs)
+    # every sequence released (the runtime releases after marking a
+    # query done): no block held but the radix tree's
+    t0 = time.time()
+    while core.states and time.time() - t0 < 10:
+        time.sleep(0.01)
+    held = core.radix.num_blocks()
+    audit = core.alloc.audit()
+    if core.states or core.alloc.free_blocks() != \
+            core.alloc.capacity - held or not audit["ok"]:
+        raise AssertionError(
+            f"paged pool leaked: {len(core.states)} sequences resident, "
+            f"{core.alloc.free_blocks()} free of {core.alloc.capacity} "
+            f"with {held} radix-held, audit {audit}")
+    print(f"[paged] core_llm tinyllama-1.1b, {_layers(engines)} layers, "
+          f"fp32 weights, paged KV {core.num_blocks}x{core.block_size} + "
+          f"radix cache, chunked "
+          f"prefill 128, prompt-lookup speculation k=3, continuous batching")
+    _print_window("paged", warm, wall, ctxs, dec, busy, launches, card)
+    acc = spec["tokens_emitted"] / max(1, spec["seq_steps"])
+    print(f"[paged] radix: {radix['hit_tokens']} prefill tokens served from "
+          f"cache ({radix['hits']} hits, {radix['misses']} misses); "
+          f"speculation: {spec['accepted']} of {spec['drafted']} drafted "
+          f"tokens accepted, {acc:.2f} tokens per sequence step, "
+          f"{spec['target_steps']} verify + {spec['fallback_steps']} "
+          f"single-token target steps [{card}]")
+    print(f"[paged] pool after release: {core.alloc.free_blocks()} of "
+          f"{core.alloc.capacity} blocks free, {held} held by the radix "
+          f"tree, audit ok")
+    same = sum(a == b for a, b in zip(answers, dense_answers))
+    print(f"[paged] {same} of {len(answers)} answers equal the dense "
+          f"path's token for token (printed only: the kernels sum in other "
+          f"orders)")
     return launches
 
 
@@ -442,13 +716,25 @@ def main() -> int:
     phase_toolchain(card)
     phase_build()
     kres = phase_kernels(dev)
+    kres.update(phase_paged_kernels(dev))
     phase_model(dev)
-    launches = phase_serve(dev, card)
+    launches, answers = phase_serve(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(phase_serve_paged(dev, card, answers))
+    paged_src = "src/repro_torch/csrc/paged_attention.cu"
     sources = {"flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                                  "src/repro/kernels/flash_prefill.py:75"),
                "decode_attention": (
                    "src/repro_torch/csrc/decode_attention.cu",
-                   "src/repro/kernels/decode_attention.py:107")}
+                   "src/repro/kernels/decode_attention.py:107"),
+               "verify_attention": (
+                   paged_src, "src/repro/kernels/decode_attention.py:232"),
+               "paged_decode_attention": (
+                   paged_src, "src/repro/kernels/decode_attention.py:281"),
+               "chunk_prefill_attention": (
+                   "src/repro_torch/csrc/chunk_prefill.cu",
+                   "src/repro/kernels/chunk_prefill.py:102")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = kres[name]

@@ -11,19 +11,33 @@ through the two ported kernels: ``flash_prefill`` for a chunk (S > 1,
 Teola's Partial/Full Prefilling against the resident prefix) and
 ``decode_attention`` for one token (S == 1). Their masks are exactly the
 position mask above over a linear cache (slot j valid iff j < pos+S).
-On CUDA tensors they launch the hand-written kernels; on CPU tensors they
-run their plain PyTorch versions. Windowed (ring-buffer) layers and the
-no-cache training call use the plain masked attention on every device.
 
-MLA, the paged-cache branch and MoE are not ported yet (ROADMAP.md
-Queue 1, items 6 and 10).
+The paged branch (``block_tables`` given; cache elems are shared block
+pools) writes through the tables in place and reads through three more
+kernels, which compute exactly the reference's gathered, masked
+attention: ``paged_decode_attention`` for one token, ``verify_attention``
+for a speculative verify chunk (``verify=True``), and
+``chunk_prefill_attention`` for every other chunk (monolithic paged
+prefill and each chunked-prefill chunk). The layer cannot tell a verify
+chunk from a prefill chunk by its shape, hence the keyword. Windowed
+layers page linearly, with the window in the mask.
+
+On CUDA tensors the kernel wrappers launch the hand-written kernels; on
+CPU tensors they run their plain PyTorch versions. Windowed (ring-buffer)
+dense layers and the no-cache training call use the plain masked
+attention on every device.
+
+MLA and MoE are not ported yet (ROADMAP.md Queue 1, item 10).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.chunk_prefill import chunk_prefill_attention
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_prefill import flash_prefill
+from repro_torch.kernels.paged_attention import (paged_decode_attention,
+                                                 verify_attention)
 from repro_torch.models.common import apply_rope, dense_init, softcap
 from repro_torch.serving import kv_cache as kvc
 
@@ -76,10 +90,36 @@ def init_gqa_params(generator, cfg, dtype, device, repeat: int):
     return p
 
 
-def gqa_layer(cfg, spec, p, x, cache, pos):
+def paged_write(pool, chunk, block_tables, positions):
+    """Scatter a (B,S,...) chunk into a (nb,bs,...) pool through per-seq
+    block tables, in place: token (b,i) at absolute position p =
+    positions[b,i] lands in physical block block_tables[b, p // bs] at
+    offset p % bs. Distinct sequences own distinct blocks, so batch
+    scatters never collide (padding rows all target the reserved pad
+    block — scratch data, never read by a real row).
+
+    A position past the table's width is DROPPED, as in the reference
+    (its ``take_along_axis`` yields an out-of-range block id there and the
+    scatter discards the write): here such writes land on the scratch pad
+    block. A frozen member of a run-to-completion decode batch makes them
+    (``LLMEngine._paged_decode_batch``); clamping them into the last table
+    block instead would overwrite a live slot."""
+    bs = pool.shape[1]
+    maxblk = block_tables.shape[1]
+    lb = (positions // bs).long()
+    bid = torch.gather(block_tables.long(), 1, lb.clamp(max=maxblk - 1))
+    bid = torch.where(lb < maxblk, bid, kvc.PAD_BLOCK)
+    pool[bid, (positions % bs).long()] = chunk.to(pool.dtype)
+    return pool
+
+
+def gqa_layer(cfg, spec, p, x, cache, pos, block_tables=None,
+              verify=False):
     """x (B,S,d). cache: elem dict {'k','v'} of (B,T,K,hd) or None
     (train). pos: int or (B,) tensor (tokens already in cache; 0 for
-    train). Cache writes happen in place. Returns (out, new_cache)."""
+    train). With ``block_tables`` (B,maxblk), cache elems are PAGED POOLS
+    (nb,bs,K,hd) shared across sequences; ``verify`` marks a speculative
+    verify chunk. Cache writes happen in place. Returns (out, new_cache)."""
     B, S, d = x.shape
     hd = cfg.resolved_head_dim
     H, K = cfg.num_heads, cfg.num_kv_heads
@@ -104,6 +144,18 @@ def gqa_layer(cfg, spec, p, x, cache, pos):
         o = _gqa_core(q, k, v, positions, positions, scale, spec.window,
                       cap)
         new_cache = None
+    elif block_tables is not None:
+        kp = paged_write(cache["k"], k, block_tables, positions)
+        vp = paged_write(cache["v"], v, block_tables, positions)
+        kw = dict(window=spec.window, cap=cap, scale=scale)
+        if S == 1:
+            o = paged_decode_attention(q[:, 0], kp, vp, block_tables,
+                                       pos + 1, **kw)[:, None]
+        elif verify:
+            o = verify_attention(q, kp, vp, block_tables, pos + S, **kw)
+        else:
+            o = chunk_prefill_attention(q, kp, vp, block_tables, pos, **kw)
+        new_cache = {"k": kp, "v": vp}
     else:
         kb, vb = cache["k"], cache["v"]
         T = kb.shape[1]

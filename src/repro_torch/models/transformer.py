@@ -9,8 +9,11 @@ Python loop where the reference scans. The same call serves training
 (cache=None, full causal), chunked prefill (cache + pos offset — Teola's
 Partial/Full Prefilling) and decode (S == 1).
 
-RWKV, hybrid SSM, MLA and MoE layers are not ported yet (ROADMAP.md
-Queue 1, item 10).
+``block_tables`` switches the cache to the paged pool (serving/
+kv_cache.py); ``verify=True`` marks a speculative verify chunk on it.
+
+RWKV, hybrid SSM, MLA (dense and paged) and MoE layers are not ported
+yet (ROADMAP.md Queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -82,11 +85,12 @@ def _ffn(cfg, p, x):
     return h @ p["w_down"]
 
 
-def apply_layer(cfg, spec, p, x, ce, pos):
-    """One transformer layer. ce: cache elem dict or None. Returns
-    (x, new_cache_elem)."""
+def apply_layer(cfg, spec, p, x, ce, pos, block_tables=None, verify=False):
+    """One transformer layer. ce: cache elem dict or None (paged pool
+    elems when ``block_tables`` is given). Returns (x, new_cache_elem)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    a_out, nc = attn.gqa_layer(cfg, spec, p["attn"], h, ce, pos)
+    a_out, nc = attn.gqa_layer(cfg, spec, p["attn"], h, ce, pos,
+                               block_tables, verify)
     x = x + a_out
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     x = x + _ffn(cfg, p["mlp"], h)
@@ -94,20 +98,27 @@ def apply_layer(cfg, spec, p, x, ce, pos):
 
 
 def apply_model(cfg: ModelConfig, params, inputs, cache=None, pos=0, *,
-                logits_slice=None, logits_at=None):
+                logits_slice=None, logits_at=None, block_tables=None,
+                verify=False):
     """inputs: int tokens (B,S). Returns (logits, cache).
 
     cache/pos implement chunked (partial) prefill and decode (the cache is
     updated in place and returned); cache=None is training/eval over the
-    full sequence. ``logits_at`` (B,) computes the head only at one
-    per-sequence chunk index (exact last-token logits under right-padded
-    bucketed prefill), returning (B,1,vocab)."""
+    full sequence. ``block_tables`` (B,maxblk) switches the cache to the
+    PAGED layout (shared block pools indexed per sequence); ``verify``
+    routes a paged chunk through the speculative verify kernel.
+    ``logits_at`` (B,) computes the head only at one per-sequence chunk
+    index (exact last-token logits under right-padded bucketed prefill),
+    returning (B,1,vocab)."""
     _check_supported(cfg)
     x = params["embed"][inputs.long()]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     if isinstance(pos, torch.Tensor):
         pos = pos.to(device=x.device, dtype=torch.int32)
+    if block_tables is not None:
+        block_tables = torch.as_tensor(block_tables, dtype=torch.int32,
+                                       device=x.device)
 
     for si, st in enumerate(cfg.stages):
         elems = params["stages"][si]
@@ -117,7 +128,8 @@ def apply_model(cfg: ModelConfig, params, inputs, cache=None, pos=0, *,
                 ce = None if cache_st is None else \
                     tree_map(lambda t: t[r], cache_st[ei])
                 pe = tree_map(lambda t: t[r], elems[ei])
-                x, _ = apply_layer(cfg, spec, pe, x, ce, pos)
+                x, _ = apply_layer(cfg, spec, pe, x, ce, pos,
+                                   block_tables, verify)
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if logits_at is not None:

@@ -1,5 +1,6 @@
-"""KV cache management, dense half (PyTorch counterpart of
-``repro/serving/kv_cache.py``).
+"""KV cache management (PyTorch counterpart of
+``repro/serving/kv_cache.py``): the dense per-sequence caches and the
+block-paged pool with its allocator and radix prefix cache.
 
 Cache layout mirrors the model's stage/pattern structure:
 
@@ -15,14 +16,20 @@ max_len)`` slots (rounded up to 256). K/V are stored in bfloat16.
 Sequence length is a per-sequence position ``pos`` passed to the model
 (all layers advance in lockstep). Unlike the functional reference, the
 writes here update the cache tensors IN PLACE (the engine owns every
-buffer it passes in) and return them.
+buffer it passes in) and return them. The paged pool is written in place
+too: ``copy_pool_blocks`` copies blocks inside the pool instead of
+returning a new one.
 
-The paged pool, block allocator and radix cache are not ported yet
-(ROADMAP.md Queue 1, item 6).
+The allocator, the radix tree and the block-mode occupancy meter are
+copies of the reference's pure-Python classes. Block migration between
+pools (``gather_pool_blocks``, ``scatter_pool_blocks``,
+``migrate_blocks``) and dead-replica reclamation belong to the serving
+layers not ported yet (ROADMAP.md Queue 1, item 8).
 """
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict
 
 import torch
@@ -84,12 +91,542 @@ def cache_bytes(cfg: ModelConfig, batch: int, max_len: int,
 
 
 # ---------------------------------------------------------------------------
+# Paged KV pool (block-granular cache with copy-on-write prefix sharing)
+#
+# Instead of one dense (R,B,max_len,...) cache per sequence, a replica owns
+# ONE physical pool per cache array, carved into fixed-size token blocks:
+#
+#     k: (R, num_blocks, block_size, K, hd)
+#
+# Every sequence holds a *block table* — a host-side list of physical block
+# ids covering its logical positions [0, pos) — instead of a private cache
+# pytree. Admission/eviction never stacks or unstacks KV; forking a prefix
+# state is O(table) refcount bumps (copy-on-write: a shared block is copied
+# only when a writer appends into it). Blocks are refcounted and free-listed
+# by BlockAllocator; block 0 is RESERVED as the batch-padding scratch block
+# (padding rows write there, so it is never handed to a sequence).
+
+PAD_BLOCK = 0
+
+
+class OutOfBlocks(RuntimeError):
+    """The paged KV pool has no free block (admission backpressure)."""
+
+
+class BlockAllocator:
+    """Refcounted free-list allocator over ``num_blocks`` fixed-size blocks.
+
+    Block ``PAD_BLOCK`` (0) is reserved for batch-padding writes and is
+    never allocated. All methods are thread-safe; ``wait_for_free`` blocks
+    until at least ``n`` blocks are free (a ``decref`` to zero notifies),
+    which is the prefill-side backpressure point when the pool is full.
+    """
+
+    def __init__(self, num_blocks: int):
+        if num_blocks < 2:
+            raise ValueError("need >= 2 blocks (block 0 is the pad block)")
+        self.num_blocks = num_blocks
+        self._refs = [0] * num_blocks
+        self._free = list(range(num_blocks - 1, 0, -1))   # pop() -> low ids
+        self._cv = threading.Condition()
+        self._waiters = 0
+
+    @property
+    def capacity(self) -> int:
+        """Allocatable blocks (excludes the reserved pad block)."""
+        return self.num_blocks - 1
+
+    def alloc(self) -> int:
+        with self._cv:
+            if not self._free:
+                raise OutOfBlocks(
+                    f"paged KV pool exhausted ({self.capacity} blocks)")
+            b = self._free.pop()
+            self._refs[b] = 1
+            return b
+
+    def incref(self, b: int):
+        with self._cv:
+            assert self._refs[b] > 0, f"incref on free block {b}"
+            self._refs[b] += 1
+
+    def decref(self, b: int):
+        with self._cv:
+            assert self._refs[b] > 0, f"decref on free block {b}"
+            self._refs[b] -= 1
+            if self._refs[b] == 0:
+                self._free.append(b)
+            if self._refs[b] <= 1:
+                # 0: a block returned to the free list; 1: a block held
+                # by a radix prefix cache lost its last live-sequence
+                # reference and became EVICTABLE capacity — both improve
+                # wait_for_free predicates that credit evictable blocks
+                self._cv.notify_all()
+
+    def refcount(self, b: int) -> int:
+        with self._cv:
+            return self._refs[b]
+
+    def refs_snapshot(self) -> list:
+        """Copy of the refcount array. Safe to call from a
+        ``wait_for_free`` predicate: the condition's underlying lock is
+        reentrant, so the waiting thread may re-enter here."""
+        with self._cv:
+            return list(self._refs)
+
+    def notify_waiters(self):
+        """Wake wait_for_free waiters whose predicate improved for a
+        reason other than a decref — e.g. a decode RESERVATION was
+        dropped (evicted sequence), freeing headroom without freeing a
+        block."""
+        with self._cv:
+            self._cv.notify_all()
+
+    def free_blocks(self) -> int:
+        with self._cv:
+            return len(self._free)
+
+    def used_blocks(self) -> int:
+        with self._cv:
+            return self.capacity - len(self._free)
+
+    def waiters(self) -> int:
+        """Threads currently blocked in ``wait_for_free`` (diagnostics)."""
+        with self._cv:
+            return self._waiters
+
+    def snapshot(self) -> dict:
+        """Point-in-time allocator state for diagnostics messages."""
+        with self._cv:
+            return {"capacity": self.capacity,
+                    "free": len(self._free),
+                    "used": self.capacity - len(self._free),
+                    "waiters": self._waiters}
+
+    def audit(self) -> dict:
+        """Conservation check: every block is either free (ref 0) or
+        referenced; free-list and refcount array must agree exactly.
+        Returns {"ok", "leaked", "free", "capacity", "bad_free"}."""
+        with self._cv:
+            free_set = set(self._free)
+            bad_free = [b for b in free_set if self._refs[b] != 0]
+            leaked = [b for b in range(1, self.num_blocks)
+                      if self._refs[b] == 0 and b not in free_set]
+            return {"ok": not bad_free and not leaked,
+                    "leaked": len(leaked), "bad_free": len(bad_free),
+                    "free": len(self._free), "capacity": self.capacity}
+
+    def wait_for_free(self, n: int, timeout: float = 30.0,
+                      reserved_fn=None) -> bool:
+        """Block until ``n`` blocks are free beyond ``reserved_fn()``
+        (blocks promised to admitted decodes). Returns False on timeout."""
+        deadline = time.time() + timeout
+        with self._cv:
+            self._waiters += 1
+            try:
+                while True:
+                    reserved = reserved_fn() if reserved_fn else 0
+                    if len(self._free) - reserved >= n:
+                        return True
+                    remaining = deadline - time.time()
+                    if remaining <= 0:
+                        return False
+                    self._cv.wait(timeout=remaining)
+            finally:
+                self._waiters -= 1
+
+
+def blocks_for(pos_end: int, block_size: int) -> int:
+    """Blocks needed to cover logical positions [0, pos_end)."""
+    return -(-pos_end // block_size)
+
+
+def trim_table(alloc: "BlockAllocator", table, pos_end: int,
+               block_size: int) -> int:
+    """Speculative-decode rollback: drop trailing block-table entries
+    that cover ONLY positions >= pos_end (rejected draft tokens /
+    overshoot), decref'ing each — a shared trailing block is released,
+    an exclusively-owned one returns to the free list. Mutates ``table``
+    in place and returns the number of entries dropped. Caller must hold
+    the engine's paged lock."""
+    keep = blocks_for(pos_end, block_size)
+    dropped = 0
+    while len(table) > keep:
+        alloc.decref(table.pop())
+        dropped += 1
+    return dropped
+
+
+# ---------------------------------------------------------------------------
+# Global radix-tree prefix cache (cross-query / cross-tenant KV reuse)
+
+class _RadixNode:
+    """One radix-tree edge: a BLOCK-ALIGNED token run plus the physical
+    blocks holding its KV. Children are keyed by the token tuple of
+    their first block — two children of one node always differ within
+    that first block (otherwise insert would have shared it), so the
+    key is collision-free without per-token child maps."""
+    __slots__ = ("tokens", "blocks", "children", "parent", "last_access")
+
+    def __init__(self, tokens, blocks, parent):
+        self.tokens = tuple(tokens)
+        self.blocks = list(blocks)
+        self.children: dict = {}
+        self.parent = parent
+        self.last_access = 0
+
+
+def _common_len(a, b) -> int:
+    n = min(len(a), len(b))
+    for i in range(n):
+        if a[i] != b[i]:
+            return i
+    return n
+
+
+class RadixPrefixCache:
+    """Radix tree over TOKEN SEQUENCES whose edges own refcounted paged
+    block runs — the generalization of the instruction-prefix cache:
+    ANY two requests (any query, any tenant) sharing a block-aligned
+    token prefix share its KV blocks, not just prompts starting with a
+    warmed instruction.
+
+    Ownership model — the tree is just another block OWNER on the
+    engine's ``BlockAllocator``:
+
+      * ``insert`` increfs every newly adopted block (the tree holds
+        exactly ONE reference per cached block, deduplicating repeat
+        inserts of an already-cached path),
+      * ``match_prefix`` increfs the matched run on the CALLER's behalf
+        — the caller extends a sequence's block table with them exactly
+        like ``fork_state``, and releases them through the normal
+        table decref path,
+      * ``evict`` walks LRU leaves and drops the tree's references; a
+        block still referenced by a live sequence survives its leaf's
+        eviction (refcount > 0), so eviction can never free live KV.
+
+    Everything is block-granular: only WHOLE blocks are cached or
+    matched (a partial tail block stays exclusively owned by the
+    sequence that wrote it), so a matched sequence's first write lands
+    on a fresh block and never COWs cached state.
+
+    Thread safety: all tree mutation runs under one internal lock,
+    taken BEFORE any allocator call (lock order: radix -> allocator —
+    the allocator never calls back). ``_blocks``, the flat mirror of
+    every cached block id, is REBOUND (never mutated in place) so
+    lock-free readers — the engine's evictable-capacity snapshot in
+    routing and wait predicates — can iterate a consistent list."""
+
+    def __init__(self, alloc: BlockAllocator, block_size: int):
+        self.alloc = alloc
+        self.block_size = int(block_size)
+        self._root = _RadixNode((), [], None)
+        self._blocks: list = []         # flat mirror of all cached blocks
+        self._clock = 0                 # LRU timestamps (monotone counter)
+        self._lock = threading.Lock()
+        self.stats = {"hits": 0, "misses": 0, "hit_tokens": 0,
+                      "inserted_blocks": 0, "evicted_blocks": 0,
+                      "freed_blocks": 0, "evictions": 0}
+
+    # -- introspection ------------------------------------------------------
+    def num_blocks(self) -> int:
+        return len(self._blocks)
+
+    def block_snapshot(self) -> list:
+        """Current mirror list (lock-free: the list object is immutable
+        once published; mutation rebinds)."""
+        return self._blocks
+
+    def num_nodes(self) -> int:
+        with self._lock:
+            n, stack = 0, [self._root]
+            while stack:
+                node = stack.pop()
+                n += len(node.children)
+                stack.extend(node.children.values())
+            return n
+
+    def evictable_blocks(self) -> int:
+        """Cached blocks the tree is the SOLE owner of (refcount 1) —
+        the capacity eviction could return to the free list."""
+        with self._lock:
+            return sum(1 for b in self._blocks
+                       if self.alloc.refcount(b) == 1)
+
+    def clear(self) -> int:
+        """Drop EVERY cached reference and reset the tree (dead-replica
+        reclamation). Returns the number of references released. Blocks
+        still shared with live sequences survive until those release."""
+        with self._lock:
+            n, stack = 0, [self._root]
+            while stack:
+                node = stack.pop()
+                stack.extend(node.children.values())
+                for b in node.blocks:
+                    self.alloc.decref(b)
+                    n += 1
+            self._root = _RadixNode((), [], None)
+            self._blocks = []               # rebind, no mutate
+            self.stats["evicted_blocks"] += n
+            return n
+
+    # -- match --------------------------------------------------------------
+    def _match_locked(self, tokens, touch: bool):
+        bs = self.block_size
+        toks = tuple(tokens)
+        node = self._root
+        out, matched = [], 0
+        if touch:
+            self._clock += 1
+            node.last_access = self._clock
+        while len(toks) - matched >= bs:
+            rest = toks[matched:]
+            child = node.children.get(rest[:bs])
+            if child is None:
+                break
+            take = (_common_len(child.tokens, rest) // bs) * bs
+            if touch:
+                child.last_access = self._clock
+            out.extend(child.blocks[: take // bs])
+            matched += take
+            if take < len(child.tokens):
+                break
+            node = child
+        return out, matched
+
+    def match_prefix(self, tokens):
+        """Longest cached block-aligned prefix of ``tokens`` ->
+        (block_ids, matched_token_count). Every returned block is
+        increfed on the CALLER's behalf: the caller owns a table
+        reference (fork semantics) and releases it through the normal
+        sequence-release decref path. Touches the matched path's LRU
+        timestamps."""
+        with self._lock:
+            out, matched = self._match_locked(tokens, touch=True)
+            for b in out:
+                self.alloc.incref(b)
+            if matched:
+                self.stats["hits"] += 1
+                self.stats["hit_tokens"] += matched
+            else:
+                self.stats["misses"] += 1
+            return out, matched
+
+    def match_len(self, tokens) -> int:
+        """Read-only probe (router prefix affinity): matched token count
+        without increfs or LRU touches."""
+        with self._lock:
+            return self._match_locked(tokens, touch=False)[1]
+
+    # -- insert -------------------------------------------------------------
+    def insert(self, tokens, table) -> int:
+        """Cache a finished prompt's block-aligned prefix: walk the tree
+        reusing already-cached nodes (a duplicate insert adopts
+        nothing), split mid-edge at the last shared block boundary, and
+        adopt the new suffix blocks from ``table`` with one tree incref
+        each. Returns the number of newly cached blocks."""
+        bs = self.block_size
+        toks = tuple(tokens[: (len(tokens) // bs) * bs])
+        if not toks:
+            return 0
+        with self._lock:
+            self._clock += 1
+            self._root.last_access = self._clock
+            node, off, added = self._root, 0, 0
+            while off < len(toks):
+                rest = toks[off:]
+                child = node.children.get(rest[:bs])
+                if child is None:
+                    nb = list(table[off // bs: off // bs + len(rest) // bs])
+                    for b in nb:
+                        self.alloc.incref(b)
+                    new = _RadixNode(rest, nb, node)
+                    new.last_access = self._clock
+                    node.children[rest[:bs]] = new
+                    self._blocks = self._blocks + nb     # rebind, no mutate
+                    added = len(nb)
+                    break
+                take = (_common_len(child.tokens, rest) // bs) * bs
+                child.last_access = self._clock
+                if take < len(child.tokens):
+                    self._split_locked(child, take)
+                node = child
+                off += take
+            self.stats["inserted_blocks"] += added
+            return added
+
+    def _split_locked(self, node: _RadixNode, take: int):
+        """Split an edge at block boundary ``take``: ``node`` keeps the
+        first ``take`` tokens/blocks; a new child inherits the remainder
+        and node's former children. No refcounts change — the tree's
+        single reference per block just moves between nodes."""
+        bs = self.block_size
+        lower = _RadixNode(node.tokens[take:], node.blocks[take // bs:],
+                           node)
+        lower.children = node.children
+        for ch in lower.children.values():
+            ch.parent = lower
+        lower.last_access = node.last_access
+        node.tokens = node.tokens[:take]
+        node.blocks = node.blocks[:take // bs]
+        node.children = {lower.tokens[:bs]: lower}
+
+    # -- eviction -----------------------------------------------------------
+    def evict(self, want: int) -> int:
+        """LRU leaf eviction under memory pressure: drop least-recently-
+        matched leaves until ``want`` blocks have actually RETURNED to
+        the free list, or nothing more can free. Leaves whose blocks are
+        all still referenced by live sequences are skipped — dropping
+        them frees nothing (refcounts keep live KV safe regardless) and
+        ancestors of a fully-shared leaf are fully shared too, so
+        skipping never strands freeable inner blocks. Evicting a leaf
+        can expose its parent as the next LRU leaf (cascade). Returns
+        blocks freed to the pool."""
+        if want <= 0:
+            return 0
+        with self._lock:
+            freed, evicted_any, skipped = 0, False, set()
+            while freed < want:
+                leaf = self._lru_leaf_locked(skipped)
+                if leaf is None:
+                    break
+                if not any(self.alloc.refcount(b) == 1
+                           for b in leaf.blocks):
+                    skipped.add(id(leaf))
+                    continue
+                for b in leaf.blocks:
+                    if self.alloc.refcount(b) == 1:
+                        freed += 1
+                    self.alloc.decref(b)
+                del leaf.parent.children[leaf.tokens[:self.block_size]]
+                self.stats["evicted_blocks"] += len(leaf.blocks)
+                self.stats["evictions"] += 1
+                evicted_any = True
+            if evicted_any:
+                self._rebuild_mirror_locked()
+                self.stats["freed_blocks"] += freed
+            return freed
+
+    def _lru_leaf_locked(self, skipped):
+        best, stack = None, [self._root]
+        while stack:
+            n = stack.pop()
+            if n.children:
+                stack.extend(n.children.values())
+            elif n is not self._root and id(n) not in skipped:
+                if best is None or n.last_access < best.last_access:
+                    best = n
+        return best
+
+    def _rebuild_mirror_locked(self):
+        blocks, stack = [], [self._root]
+        while stack:
+            n = stack.pop()
+            blocks.extend(n.blocks)
+            stack.extend(n.children.values())
+        self._blocks = blocks                # rebind, no mutate
+
+
+
+def _paged_elem_shape(cfg: ModelConfig, spec: LayerSpec, repeat: int,
+                      num_blocks: int, block_size: int):
+    """Per-elem pool shapes: the token axis (T) of the dense layout becomes
+    (num_blocks, block_size). Sliding-window layers are paged LINEARLY —
+    the window is enforced by the position mask, not a ring buffer — so
+    every attention elem pages identically. Recurrent state (rwkv /
+    hybrid-SSM) is per-sequence, not per-token, and cannot be paged."""
+    if spec.kind in ("rwkv", "hybrid"):
+        raise ValueError(
+            f"paged KV cache does not support '{spec.kind}' layers "
+            "(recurrent state is per-sequence, not per-token)")
+    if cfg.attention_kind != "gqa":
+        raise NotImplementedError(
+            f"{cfg.name}: the paged MLA pool is not ported yet "
+            f"(ROADMAP.md Queue 1, item 10)")
+    hd = cfg.resolved_head_dim
+    shape = (repeat, num_blocks, block_size, cfg.num_kv_heads, hd)
+    return {"k": (shape, KV_DTYPE), "v": (shape, KV_DTYPE)}
+
+
+def init_paged_pool(cfg: ModelConfig, num_blocks: int, block_size: int, *,
+                    device="cuda"):
+    """Physical block pool tree (mirrors init_cache's stage structure,
+    with the token axis carved into (num_blocks, block_size)), bf16 zeros
+    on ``device``."""
+    stages = []
+    for st in cfg.stages:
+        elems = []
+        for spec in st.pattern:
+            shapes = _paged_elem_shape(cfg, spec, st.repeat, num_blocks,
+                                       block_size)
+            elems.append({name: torch.zeros(shape, dtype=dtype,
+                                            device=device)
+                          for name, (shape, dtype) in shapes.items()})
+        stages.append(elems)
+    return {"stages": stages}
+
+
+def paged_block_bytes(cfg: ModelConfig, block_size: int) -> int:
+    """True memory of ONE pool block across all layers — the unit the
+    block-based OccupancyMeter reports."""
+    total = 0
+    for st in cfg.stages:
+        for spec in st.pattern:
+            for shape, dtype in _paged_elem_shape(
+                    cfg, spec, st.repeat, 1, block_size).values():
+                n = 1
+                for s in shape:
+                    n *= s
+                total += n * dtype.itemsize
+    return total
+
+
+def copy_pool_blocks(pool, srcs, dsts):
+    """Copy-on-write realization: duplicate physical blocks ``srcs[i]``
+    into ``dsts[i]`` across every pool array, IN PLACE (block axis is axis
+    1, after the repeat axis), and return the same pool. ``srcs`` and
+    ``dsts`` are disjoint by contract, so the gathered right-hand side is
+    never overwritten while it is read.
+
+    Contract: this is a PURE DATA MOVE with no refcount side effects.
+    The caller owns all ``BlockAllocator`` bookkeeping — ``dsts`` must
+    already be allocated (refcounted) and any decref of ``srcs`` happens
+    after the copy."""
+    if set(srcs) & set(dsts):
+        raise ValueError(f"copy_pool_blocks: srcs {srcs} and dsts {dsts} "
+                         f"overlap")
+    arrays = [a for elems in pool["stages"] for elem in elems
+              for a in elem.values()]
+    s = torch.as_tensor(srcs, dtype=torch.long, device=arrays[0].device)
+    d = torch.as_tensor(dsts, dtype=torch.long, device=arrays[0].device)
+    with torch.inference_mode():
+        for a in arrays:
+            a[:, d] = a[:, s]
+    return pool
+
+
+def reserve_blocks(alloc: "BlockAllocator", n: int) -> list:
+    """All-or-nothing allocation of ``n`` blocks (each refcount 1). If
+    the pool runs out mid-way, every block already taken is returned and
+    ``OutOfBlocks`` propagates — the allocator is left exactly as found."""
+    got: list = []
+    try:
+        for _ in range(n):
+            got.append(alloc.alloc())
+    except OutOfBlocks:
+        for b in got:
+            alloc.decref(b)
+        raise
+    return got
+
+
+# ---------------------------------------------------------------------------
 # Occupancy accounting (engine-pool load routing)
 
 def bytes_per_token(cfg: ModelConfig, chunk: int = 256) -> int:
     """Marginal KV bytes per resident token, amortized over a reference
-    window (sliding-window layers make the true cost sub-linear; a
-    1k-token reference captures the steady state)."""
+    window (sliding-window / recurrent layers make the true cost
+    sub-linear; a 1k-token reference captures the steady state)."""
     ref = 1024
     return max(1, cache_bytes(cfg, 1, ref, chunk) // ref)
 
@@ -99,13 +636,33 @@ class OccupancyMeter:
 
     Engines advance the token ledger on prefill/decode and clear entries
     on release; the pool router reads ``tokens()`` as the KV-occupancy
-    component of a replica's load. ``decode_slots`` adds admitted-slot
-    introspection for the continuous decode loop. (The block-bound mode
-    of the reference, for paged engines, is not ported yet.)"""
+    component of a replica's load. Under run-to-completion decode the
+    ledger advances once per batch (``advance(sid, max_new)`` up front);
+    under continuous batching it advances PER ITERATION (one token per
+    resident sequence per step), so occupancy tracks what is actually
+    written to the KV cache.
 
-    def __init__(self, bytes_per_tok: int = 0, decode_slots: int = 0):
+    ``decode_slots`` adds ADMITTED-slot introspection for the continuous
+    decode loop: the loop acquires a slot at admission and releases it at
+    eviction, so ``slots_used()`` reports which sequences are actively
+    stepping. Note the pool's slot-aware decode router consults the
+    loop's own ``decode_slots_free()`` (which also counts sequences
+    WAITING for a slot), not this meter.
+
+    When bound to a ``BlockAllocator`` (paged engines), ``tokens()`` and
+    ``bytes()`` report ALLOCATED BLOCKS — the true memory footprint,
+    counting a shared prefix once and quantizing at block granularity —
+    instead of the per-sid amortized token ledger. The per-sid ledger is
+    still maintained for ``seqs()`` and slot introspection."""
+
+    def __init__(self, bytes_per_tok: int = 0, decode_slots: int = 0, *,
+                 allocator: "BlockAllocator" = None, block_size: int = 0,
+                 block_bytes: int = 0):
         self.bytes_per_tok = bytes_per_tok
         self.decode_slots = decode_slots
+        self.allocator = allocator
+        self.block_size = block_size
+        self.block_bytes = block_bytes
         self._tokens: Dict[str, int] = {}
         self._slot_sids: set = set()
         self._lock = threading.Lock()
@@ -119,11 +676,19 @@ class OccupancyMeter:
             self._tokens.pop(sid, None)
 
     def tokens(self) -> int:
+        if self.allocator is not None:
+            return self.allocator.used_blocks() * self.block_size
         with self._lock:
             return sum(self._tokens.values())
 
     def bytes(self) -> int:
+        if self.allocator is not None:
+            return self.allocator.used_blocks() * self.block_bytes
         return self.tokens() * self.bytes_per_tok
+
+    def blocks(self) -> int:
+        """Allocated pool blocks (0 when not block-bound)."""
+        return 0 if self.allocator is None else self.allocator.used_blocks()
 
     def seqs(self) -> int:
         with self._lock:

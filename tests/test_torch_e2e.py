@@ -1,7 +1,9 @@
-"""The slice end to end: one naive-RAG query under Teola on the reference's
-real engines and on the port's (CPU) engines holding the same weights.
-Both must build the same e-graph, retrieve the same chunks and decode the
-same answer tokens."""
+"""The slices end to end: one naive-RAG query under Teola on the
+reference's real engines and on the port's (CPU) engines holding the same
+weights. Both must build the same e-graph, retrieve the same chunks and
+decode the same answer tokens — on the dense path, and on the paged
+serving path (paged KV + radix prefix cache, chunked prefill, prompt-
+lookup speculative decoding) under continuous batching."""
 from collections import Counter
 
 import pytest
@@ -21,10 +23,14 @@ from repro_torch.core.teola import Teola as TTeola  # noqa: E402
 Q = {"question": "what is fact 3 about optics", "docs": doc_corpus(2)}
 
 
-def _port_engines_like(ref):
+PAGED = dict(paged_kv=True, chunked_prefill=True, prefill_chunk=128,
+             prefix_cache="radix")
+
+
+def _port_engines_like(ref, **kw):
     """The port's engines dict, each model engine holding the reference
     engine's weights."""
-    port = tapps.build_engines(device="cpu")
+    port = tapps.build_engines(device="cpu", **kw)
     for name in ("core_llm", "lite_llm"):
         tree = jax.tree.map(np.asarray, ref[name].params)
         port[name].params = bridge.decoder_params(tree, port[name].cfg, "cpu")
@@ -84,3 +90,40 @@ def test_port_runtime_rejects_unported_serving_layers(runs, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TTeola(tapps.naive_rag(runs["port_engines"]), runs["port_engines"],
                **kw)
+
+
+@pytest.fixture(scope="module")
+def paged_runs():
+    """Both packages on the paged serving path: paged + chunked + radix
+    engines, k=3 prompt-lookup speculation on the core LLM, continuous
+    batching."""
+    ref = build_engines(**PAGED)
+    port = _port_engines_like(ref, **PAGED)
+    for engines in (ref, port):
+        engines["core_llm"].enable_speculative(draft=None, k=3)
+    return {"ref": _run(Teola, ref, continuous_batching=True),
+            "port": _run(TTeola, port, continuous_batching=True),
+            "port_engines": port}
+
+
+def test_naive_rag_paged_path_same_answer_as_reference(paged_runs):
+    got, want = paged_runs["port"], paged_runs["ref"]
+    assert got["ops"] == want["ops"]
+    assert got["retrieved"] == want["retrieved"]
+    assert isinstance(got["answer"], str) and got["answer"]
+    assert got["answer"] == want["answer"]
+
+
+def test_naive_rag_paged_path_same_answer_as_dense(runs, paged_runs):
+    """The paged serving path decodes the dense path's tokens, through
+    chunked prefill and verified speculative chunks, and leaks no
+    block."""
+    assert paged_runs["port"]["answer"] == runs["port"]["answer"]
+    core = paged_runs["port_engines"]["core_llm"]
+    assert core.spec.stats["target_steps"] > 0
+    assert core._decode_loop is None or not core._decode_loop.is_alive()
+    for sid in list(core.states):
+        core.release(sid)
+    held = core.radix.num_blocks()
+    assert core.alloc.free_blocks() == core.alloc.capacity - held
+    assert core.alloc.audit()["ok"]

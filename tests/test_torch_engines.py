@@ -2,7 +2,9 @@
 the cases of tests/test_engines.py (encoders, LLM partial prefill and
 batched decode) run on both packages, which must emit identical greedy
 tokens; plus the port-only surface (prefix cache, continuous decode loop,
-clone, the options it does not port yet)."""
+clone, the options it does not port yet). The paged path, chunked prefill
+and speculative decoding: tests/test_torch_paged.py and
+tests/test_torch_chunked_spec.py."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -153,14 +155,21 @@ def test_clone_shares_weights_not_state():
     assert port.kv_free_blocks() is None
 
 
-@pytest.mark.parametrize("kw", [{"paged": True}, {"chunked_prefill": True},
-                                {"prefix_cache": "radix"}])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TLLMEngine("t", tget_config("tiny-lite-llm"), device="cpu", **kw)
+_UNPORTED = {
+    "attach_slo": lambda e: e.attach_slo(object()),
+    "export_seq": lambda e: e.export_seq("a"),
+    "import_seq": lambda e: e.import_seq({"sid": "a"}),
+    "recover_decode": lambda e: e.recover_decode("a", "some text", 4),
+    "preempt_decode": lambda e: e.preempt_decode(None),
+    "paged_mla": lambda e: TLLMEngine("t", tget_config("deepseek-v3-671b"),
+                                      paged=True, device="cpu"),
+}
 
 
-def test_speculative_decoding_not_ported():
-    _, port = _llm_pair()
+@pytest.mark.parametrize("what", sorted(_UNPORTED))
+def test_unported_options_raise(what):
+    """The serving-layer hooks (ROADMAP item 8) and MLA (item 10, paged or
+    not) still refuse, naming the ROADMAP item."""
+    eng = TLLMEngine("t", tget_config("tiny-lite-llm"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.enable_speculative(k=4)
+        _UNPORTED[what](eng)
