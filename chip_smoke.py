@@ -22,6 +22,12 @@ Phases, in order; any failure exits non-zero:
      continuous batching, the core LLM on paged KV with the radix prefix
      cache, chunked prefill (128-token chunks) and prompt-lookup
      speculative decoding (k=3); 1 warm-up query, then 4 together.
+  7. RWKV-6: the WKV scan kernel (K6) against its plain version at RWKV-6
+     3B's heads (B=4, H=40, hd=64, S 512 / 128 / 1, plus hd=32) in fp32
+     and bf16, timed; RWKV-6 3B at full width cut to 2 layers, card
+     against CPU (prefill 100, 8 decode steps, a two-chunk prefill); then
+     naive-RAG under Teola with the full 32-layer RWKV-6 3B as the core
+     LLM on the dense path; 1 warm-up query, then 4 together.
 
 Before the last line it prints a JSON line of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -62,6 +68,8 @@ from repro_torch.kernels.flash_prefill import (flash_prefill,  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain, paged_gather,
     verify_attention, verify_attention_plain)
+from repro_torch.kernels.rwkv6_scan import (rwkv6_scan,  # noqa: E402
+                                            rwkv6_scan_plain)
 from repro_torch.models.transformer import apply_model, init_params  # noqa: E402
 from repro_torch.serving import kv_cache as kvc  # noqa: E402
 from repro_torch.training.data import doc_corpus  # noqa: E402
@@ -428,14 +436,19 @@ def two_layer_tinyllama():
                                stages=(Stage(pattern=st.pattern, repeat=2),))
 
 
-def run_model(cfg, params, dev, toks, *, paged=False, verify_tail=False):
-    """Prefill 100 tokens, partial-prefill 40 more on the same cache, then
-    8 decode steps, all fed fixed tokens (so both devices see the same
-    inputs); with ``verify_tail`` one more 4-token chunk at 148. With
-    ``paged`` the cache is a paged pool read through a shuffled block
-    table and the tail is a speculative verify chunk. Returns the logits
-    of every call, on the CPU."""
-    sched = [(0, 100), (100, 140)] + [(140 + i, 141 + i) for i in range(8)]
+SCHED = [(0, 100), (100, 140)] + [(140 + i, 141 + i) for i in range(8)]
+
+
+def run_model(cfg, params, dev, toks, *, paged=False, verify_tail=False,
+              sched=SCHED):
+    """By default prefill 100 tokens, partial-prefill 40 more on the same
+    cache, then 8 decode steps, all fed fixed tokens (so both devices see
+    the same inputs); ``sched`` gives other (lo, hi) token ranges. With
+    ``verify_tail`` one more 4-token chunk at 148. With ``paged`` the
+    cache is a paged pool read through a shuffled block table and the
+    tail is a speculative verify chunk. Returns the logits of every call
+    and the cache."""
+    sched = list(sched)
     tail = (148, 152)
     if verify_tail:
         sched.append(tail)
@@ -456,7 +469,7 @@ def run_model(cfg, params, dev, toks, *, paged=False, verify_tail=False):
                                         verify=paged and (lo, hi) == tail,
                                         **kw)
             outs.append(logits.float().cpu())
-    return outs
+    return outs, cache
 
 
 def _max_err(got, want):
@@ -470,12 +483,12 @@ def phase_model(dev):
     params_dev = tree_to(params_cpu, dev)
     toks = np.random.RandomState(SEED).randint(0, cfg.vocab_size, 152)
     n0 = (flash_prefill.launches, decode_attention.launches)
-    got = run_model(cfg, params_dev, dev, toks)
+    got, _ = run_model(cfg, params_dev, dev, toks)
     torch.cuda.synchronize()
     if (flash_prefill.launches - n0[0], decode_attention.launches - n0[1]) \
             != (2 * 2, 8 * 2):
         raise AssertionError("model phase did not run through the kernels")
-    want = run_model(cfg, params_cpu, "cpu", toks)
+    want, _ = run_model(cfg, params_cpu, "cpu", toks)
     err = _max_err(got, want)
     scale = max(w.abs().max().item() for w in want)
     finite = all(torch.isfinite(g).all().item() for g in got)
@@ -488,15 +501,15 @@ def phase_model(dev):
     # the paged form: prefill 100 and a chunk of 40 (K5), 8 decode steps
     # (K4), one verify chunk of 4 (K3), 2 layers each
     n0 = [fn.launches for fn in PAGED]
-    paged = run_model(cfg, params_dev, dev, toks, paged=True,
+    paged, _ = run_model(cfg, params_dev, dev, toks, paged=True,
                       verify_tail=True)
     torch.cuda.synchronize()
     got_n = [fn.launches - n for fn, n in zip(PAGED, n0)]
     if got_n != [8 * 2, 1 * 2, 2 * 2]:
         raise AssertionError(f"paged model phase launched {got_n} "
                              f"(K4, K3, K5), expected [16, 2, 4]")
-    dense = run_model(cfg, params_dev, dev, toks, verify_tail=True)
-    paged_cpu = run_model(cfg, params_cpu, "cpu", toks, paged=True,
+    dense, _ = run_model(cfg, params_dev, dev, toks, verify_tail=True)
+    paged_cpu, _ = run_model(cfg, params_cpu, "cpu", toks, paged=True,
                           verify_tail=True)
     e_dense, e_cpu = _max_err(paged, dense), _max_err(paged, paged_cpu)
     finite = all(torch.isfinite(g).all().item() for g in paged)
@@ -535,17 +548,26 @@ def _profiled_query(teola, docs, card: str):
         wall = time.time() - t0
     if ctx.error is not None:
         raise ctx.error
-    evs = [(getattr(e, "self_device_time_total", 0), e.key)
+    evs = [(getattr(e, "self_device_time_total", 0), e.key, e.count)
            for e in prof.key_averages()]
-    dev_s = sum(t for t, _ in evs) / 1e6
+    dev_s = sum(t for t, _, _ in evs) / 1e6
     if dev_s <= 0:
         print("[profile] device time: not measured (the profiler saw no "
               "device activity)")
         return
     print(f"[profile] one query under the profiler: wall {wall:.3f} s, "
           f"device busy {dev_s:.3f} s ({100 * dev_s / wall:.1f}%) [{card}]")
-    for t, key in sorted(evs, reverse=True)[:8]:
+    for t, key, _ in sorted(evs, reverse=True)[:8]:
         print(f"[profile]   {t / 1e3:9.3f} ms  {key[:90]}")
+    # the hand-written kernels of the path, wherever they rank: each
+    # csrc/<name>.cu defines <name>_kernel in an anonymous namespace
+    prefix = "void (anonymous namespace)::"
+    mine = tuple(f"{prefix}{name}_kernel<" for name in build.SOURCES)
+    for t, key, n in sorted(evs, reverse=True):
+        if key.startswith(mine) and t > 0:
+            print(f"[profile]   hand-written: {key[len(prefix):][:60]}: "
+                  f"{t / 1e3:.3f} ms device over {n} launches "
+                  f"({t / max(1, n):.2f} us each)")
 
 
 def _warm_up(teola, docs) -> float:
@@ -608,32 +630,40 @@ def _print_window(tag, warm, wall, ctxs, dec, busy, launches, card):
                                  f"path")
 
 
-def phase_serve(dev, card: str):
-    """The dense path. Returns (launches, answers)."""
+def phase_serve(dev, card: str, model="tinyllama-1.1b",
+                kernels=(flash_prefill, decode_attention), tag="serve"):
+    """A dense path: naive-RAG under Teola with ``model`` as the core LLM,
+    its KV or recurrent state in the dense cache, through ``kernels``.
+    Returns (launches, answers)."""
     torch.cuda.reset_peak_memory_stats()
     engines = build_engines(device=dev)
-    engines["core_llm"] = LLMEngine("core_llm", get_config("tinyllama-1.1b"),
-                                    seed=SEED, max_batch=4, device=dev)
+    core = LLMEngine("core_llm", get_config(model), seed=SEED, max_batch=4,
+                     device=dev)
+    engines["core_llm"] = core
     teola = Teola(naive_rag(engines), engines)
     docs = doc_corpus(2)
-    kernels = [flash_prefill, decode_attention]
     try:
         for fn in kernels:
             fn.launches = 0
         warm = _warm_up(teola, docs)
-        dec0 = engines["core_llm"].stats["decode_tokens"]
+        dec0 = core.stats["decode_tokens"]
         busy0 = _busy(engines)
         wall, ctxs = _run_window(teola, docs)
         launches = {fn.__name__: fn.launches for fn in kernels}
         busy = {k: v - busy0[k] for k, v in _busy(engines).items()}
-        dec = engines["core_llm"].stats["decode_tokens"] - dec0
+        stats = dict(core.stats)
+        dec = stats["decode_tokens"] - dec0
         _profiled_query(teola, docs, card)
     finally:
         teola.shutdown()
     answers = _check_answers(ctxs)
-    print(f"[serve] core_llm tinyllama-1.1b, {_layers(engines)} layers, "
-          f"fp32 weights, dense KV")
-    _print_window("serve", warm, wall, ctxs, dec, busy, launches, card)
+    kinds = {sp.kind for st in core.cfg.stages for sp in st.pattern}
+    print(f"[{tag}] core_llm {model}, {_layers(engines)} layers, "
+          f"fp32 weights, dense "
+          f"{'recurrent state' if kinds == {'rwkv'} else 'KV'}; prefilled "
+          f"{stats['prefill_tokens']} and decoded {stats['decode_tokens']} "
+          f"tokens over the {1 + len(QUESTIONS)} queries")
+    _print_window(tag, warm, wall, ctxs, dec, busy, launches, card)
     return launches, answers
 
 
@@ -703,6 +733,134 @@ def phase_serve_paged(dev, card: str, dense_answers):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: RWKV-6 (K6, the 2-layer model, the serve path)
+
+RWKV = "rwkv6-3b"
+# K6 against its plain version: fp32 inputs differ only in summation order
+# over hd terms per step; bf16 inputs are the same bf16 values on both
+# sides, held at the bf16 level of the other kernels
+SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# a two-chunk prefill against one chunk on the card: the same recurrence,
+# the projections' matmuls may sum in another order for other row counts
+SPLIT_TOL = 1e-3
+
+
+def _scan_case(B, S, H, hd, dev, dtype):
+    """tests/test_kernels.py's distributions: r, k, v ~ N(0, 0.25), w in
+    (0.4, 0.9), a nonzero u and a random state0."""
+    rs = np.random.RandomState(B * 1000 + S + hd)
+
+    def randn(*shape):
+        return torch.from_numpy(rs.standard_normal(shape).astype(
+            np.float32)).to(dev)
+    r, k, v = [randn(B, S, H, hd) * 0.5 for _ in range(3)]
+    w = torch.sigmoid(randn(B, S, H, hd)) * 0.5 + 0.4
+    return [a.to(dtype) for a in (r, k, v, w)] + [randn(H, hd) * 0.1,
+                                                  randn(B, H, hd, hd) * 0.1]
+
+
+def _scan_work(r):
+    """Bytes (r, k, v, w in, y out, the state in and out) and flops (per
+    (b, t, h): hd^2 each for k*v, u*kv, the add, r*(...) as a multiply-add
+    (2) and w*S + kv as a multiply-add (2): 7*hd^2) of one K6 call."""
+    B, S, H, hd = r.shape
+    nbytes = (4 * r.numel() * r.element_size() + r.numel() * 4
+              + 2 * B * H * hd * hd * 4)
+    return nbytes, 7 * hd * hd * B * S * H
+
+
+def phase_rwkv_kernel(dev) -> dict:
+    """K6 against its plain version (y and the final state), then timed
+    at the serve path's shapes. Returns {max_abs_err, ms, plain_ms,
+    bound_ms, bound_by, library_ms} at the decode shape (B=4, S=1), the
+    one the serve path launches most."""
+    res = {"max_abs_err": 0.0}
+    cases = [(4, S, 40, 64) for S in (512, 128, 1)] + [(4, 128, 80, 32)]
+    for B, S, H, hd in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = _scan_case(B, S, H, hd, dev, dtype)
+            y, st = rwkv6_scan(*xs)
+            torch.cuda.synchronize()
+            y_p, st_p = rwkv6_scan_plain(*xs)
+            err = max((y - y_p).abs().max().item(),
+                      (st - st_p).abs().max().item())
+            tol = SCAN_TOL[dtype]
+            print(f"[rwkv] rwkv6_scan B={B} S={S} H={H} hd={hd} "
+                  f"{str(dtype)[6:]}: max_abs_err (y, state) {err:.3e} "
+                  f"(tolerance {tol:g})")
+            if not (err <= tol):
+                raise AssertionError(f"rwkv6_scan: {err} > {tol}")
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+    # timings at RWKV-6 3B's heads, batch bucket 4: the largest prefill
+    # bucket, the serve path's prefill buckets (128, 64), then decode
+    # (reported)
+    for S in (512, 128, 64, 1):
+        xs = _scan_case(4, S, 40, 64, dev, torch.float32)
+        ms = cuda_ms(lambda: rwkv6_scan(*xs))
+        plain = cuda_ms(lambda: rwkv6_scan_plain(*xs), iters=5, warmup=1)
+        bound, by = _bound(*_scan_work(xs[0]))
+        print(f"[rwkv] rwkv6_scan B=4 S={S} H=40 hd=64 fp32: kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms "
+              f"({by}); no single PyTorch call computes the recurrence")
+        res.update(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                   library_ms=None)
+    return res
+
+
+def two_layer_rwkv():
+    cfg = get_config(RWKV)
+    return dataclasses.replace(cfg, name=RWKV + "-2l", stages=(
+        Stage(pattern=cfg.stages[0].pattern, repeat=2),))
+
+
+def _state_leaves(cache):
+    """The recurrent cache's leaves (state, sx_tm, sx_cm), on the CPU."""
+    return {k: v.float().cpu() for k, v in cache["stages"][0][0].items()}
+
+
+def phase_rwkv_model(dev):
+    """RWKV-6 3B at full width, 2 layers, card against CPU on the same
+    weights: prefill 100 tokens then 8 decode steps (logits and every
+    layer's state and token-shift rows), one K6 launch per layer per
+    forward, and a prefill in two chunks against one."""
+    cfg = two_layer_rwkv()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params_cpu = init_params(cfg, gen, torch.float32, "cpu")
+    params_dev = tree_to(params_cpu, dev)
+    toks = np.random.RandomState(SEED).randint(0, cfg.vocab_size, 108)
+    sched = [(0, 100)] + [(100 + i, 101 + i) for i in range(8)]
+    n0 = rwkv6_scan.launches
+    got, got_c = run_model(cfg, params_dev, dev, toks, sched=sched)
+    torch.cuda.synchronize()
+    n = rwkv6_scan.launches - n0
+    if n != 2 * len(sched):
+        raise AssertionError(f"rwkv model phase launched K6 {n} times, "
+                             f"expected {2 * len(sched)}")
+    want, want_c = run_model(cfg, params_cpu, "cpu", toks, sched=sched)
+    got_c, want_c = _state_leaves(got_c), _state_leaves(want_c)
+    err = _max_err(got, want)
+    err_c = max((got_c[k] - want_c[k]).abs().max().item() for k in want_c)
+    scale = max(w.abs().max().item() for w in want)
+    finite = all(torch.isfinite(g).all().item() for g in got)
+    split_c, one_c = [
+        _state_leaves(run_model(cfg, params_dev, dev, toks, sched=sc)[1])
+        for sc in ([(0, 37), (37, 100)], [(0, 100)])]
+    err_s = max((split_c[k] - one_c[k]).abs().max().item() for k in one_c)
+    hd = cfg.ssm.head_dim
+    print(f"[rwkv] {cfg.name} (d={cfg.d_model}, H={cfg.d_model // hd}, "
+          f"hd={hd}, 2 layers): card vs CPU max |dlogits| {err:.3e} over "
+          f"|logits| <= {scale:.3f}, max |dcache| (state, sx_tm, sx_cm) "
+          f"{err_c:.3e} (tolerance {MODEL_TOL:g}); K6 launches {n} "
+          f"(2 layers x {len(sched)} forwards); prefill 37 + 63 vs 100 "
+          f"on the card: max |dcache| {err_s:.3e} (tolerance "
+          f"{SPLIT_TOL:g})")
+    if not finite or not (max(err, err_c) <= MODEL_TOL) or \
+            not (err_s <= SPLIT_TOL):
+        raise AssertionError(f"rwkv model phase: {err}, {err_c}, {err_s}, "
+                             f"finite {finite}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -722,6 +880,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(phase_serve_paged(dev, card, answers))
+    kres["rwkv6_scan"] = phase_rwkv_kernel(dev)
+    phase_rwkv_model(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(phase_serve(dev, card, RWKV, (rwkv6_scan,),
+                                "rwkv-serve")[0])
     paged_src = "src/repro_torch/csrc/paged_attention.cu"
     sources = {"flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                                  "src/repro/kernels/flash_prefill.py:75"),
@@ -734,7 +898,9 @@ def main() -> int:
                    paged_src, "src/repro/kernels/decode_attention.py:281"),
                "chunk_prefill_attention": (
                    "src/repro_torch/csrc/chunk_prefill.cu",
-                   "src/repro/kernels/chunk_prefill.py:102")}
+                   "src/repro/kernels/chunk_prefill.py:102"),
+               "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
+                              "src/repro/kernels/rwkv6_scan.py:52")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = kres[name]

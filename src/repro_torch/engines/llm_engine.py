@@ -26,8 +26,11 @@ Inside ``apply_model`` the dense attention layers go through the ported
 ``flash_prefill`` (chunks) and ``decode_attention`` (single tokens)
 kernels, and the paged layers through ``chunk_prefill_attention``
 (chunks), ``verify_attention`` (speculative verify chunks) and
-``paged_decode_attention`` (single tokens), on CUDA; through their plain
-versions on the CPU. Every forward runs under ``torch.inference_mode()``.
+``paged_decode_attention`` (single tokens), and RWKV-6 layers through
+``rwkv6_scan`` (dense mode only: their per-sequence recurrent state lives
+in the dense cache and is stacked, forked and unstacked like K/V), on
+CUDA; through their plain versions on the CPU. Every forward runs under
+``torch.inference_mode()``.
 
 The serving-layer hooks — SLO scheduling (``attach_slo``, preemption),
 fault recovery (``recover_decode``) and disaggregation (``export_seq`` /

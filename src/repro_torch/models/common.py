@@ -28,6 +28,16 @@ def rms_norm(x, scale, eps: float = 1e-6):
     return (y * (1.0 + scale.float())).to(dtype)
 
 
+def group_norm_heads(x, scale, eps: float = 1e-5):
+    """Per-head group norm over the last dim. x: (..., H, hd)."""
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(dtype)
+
+
 def _gelu_tanh(x):
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x, approximate="tanh")

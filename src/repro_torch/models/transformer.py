@@ -1,5 +1,6 @@
 """Dense decoder model: init + apply (PyTorch counterpart of
-``repro/models/transformer.py`` for GQA attention layers with a dense FFN).
+``repro/models/transformer.py`` for GQA attention layers with a dense FFN
+and RWKV-6 layers).
 
 Params keep the reference's pytree layout, as a nested dict of tensors:
 ``{'embed', 'final_norm', 'lm_head'?, 'stages': [[elem, ...], ...]}``
@@ -12,8 +13,10 @@ Partial/Full Prefilling) and decode (S == 1).
 ``block_tables`` switches the cache to the paged pool (serving/
 kv_cache.py); ``verify=True`` marks a speculative verify chunk on it.
 
-RWKV, hybrid SSM, MLA (dense and paged) and MoE layers are not ported
-yet (ROADMAP.md Queue 1, item 10).
+RWKV-6 layers (``models/ssm.py``) keep a per-sequence recurrent state in
+the dense cache (``state``, ``sx_tm``, ``sx_cm``), updated in place; they
+ignore ``pos``. Hybrid SSM, MLA (dense and paged) and MoE layers and
+embedding inputs are not ported yet (ROADMAP.md Queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -21,18 +24,26 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.common import (act_fn, dense_init, embed_init,
                                        rms_norm, softcap, tree_map)
+
+
+def _supported(cfg: ModelConfig, spec: LayerSpec) -> bool:
+    if spec.moe or cfg.embed_stub:
+        return False
+    if spec.kind == "rwkv":
+        return cfg.ssm is not None and cfg.ssm.kind == "rwkv6"
+    return spec.kind == "attn" and cfg.attention_kind == "gqa"
 
 
 def _check_supported(cfg: ModelConfig):
     for st in cfg.stages:
         for spec in st.pattern:
-            if spec.kind != "attn" or spec.moe or \
-                    cfg.attention_kind != "gqa" or cfg.embed_stub:
+            if not _supported(cfg, spec):
                 raise NotImplementedError(
-                    f"{cfg.name}: only dense GQA decoders with token inputs "
-                    f"are ported (ROADMAP.md Queue 1, item 10)")
+                    f"{cfg.name}: only dense GQA and RWKV-6 decoders with "
+                    f"token inputs are ported (ROADMAP.md Queue 1, item 10)")
 
 
 # ---------------------------------------------------------------------------
@@ -42,6 +53,9 @@ def init_layer_elem(generator, cfg: ModelConfig, spec: LayerSpec, dtype,
                     device, repeat: int):
     d, f = cfg.d_model, cfg.d_ff
     zeros = lambda: torch.zeros((repeat, d), dtype=dtype, device=device)  # noqa: E731
+    if spec.kind == "rwkv":
+        return {"ln1": zeros(), "ln2": zeros(),
+                **ssm.init_rwkv_params(generator, cfg, dtype, device, repeat)}
     return {
         "ln1": zeros(), "ln2": zeros(),
         "attn": attn.init_gqa_params(generator, cfg, dtype, device, repeat),
@@ -85,9 +99,38 @@ def _ffn(cfg, p, x):
     return h @ p["w_down"]
 
 
+def _rwkv_layer(cfg, p, x, ce):
+    """norm -> time mix -> residual, norm -> channel mix -> residual. With
+    a cache elem the new state and token-shift rows are written into its
+    views in place; without one the state starts at zeros."""
+    B, _, d = x.shape
+    if ce is None:
+        hd = cfg.ssm.head_dim
+        state = torch.zeros((B, d // hd, hd, hd), dtype=torch.float32,
+                            device=x.device)
+        sx_tm = torch.zeros((B, d), dtype=torch.float32, device=x.device)
+        sx_cm = torch.zeros_like(sx_tm)
+    else:
+        state, sx_tm, sx_cm = ce["state"], ce["sx_tm"], ce["sx_cm"]
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    out, _, new_sx_tm = ssm.rwkv_time_mix(
+        cfg, p["tm"], h, state, sx_tm,
+        out_state=None if ce is None else state)
+    x = x + out
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    out, new_sx_cm = ssm.rwkv_channel_mix(cfg, p["cm"], h, sx_cm)
+    x = x + out
+    if ce is not None:
+        sx_tm.copy_(new_sx_tm)
+        sx_cm.copy_(new_sx_cm)
+    return x, ce
+
+
 def apply_layer(cfg, spec, p, x, ce, pos, block_tables=None, verify=False):
     """One transformer layer. ce: cache elem dict or None (paged pool
     elems when ``block_tables`` is given). Returns (x, new_cache_elem)."""
+    if spec.kind == "rwkv":
+        return _rwkv_layer(cfg, p, x, ce)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     a_out, nc = attn.gqa_layer(cfg, spec, p["attn"], h, ce, pos,
                                block_tables, verify)

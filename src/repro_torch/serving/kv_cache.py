@@ -11,7 +11,10 @@ Cache layout mirrors the model's stage/pattern structure:
 where each attention ``elem_cache`` is ``{'k': (R,B,T,K,hd), 'v': ...}``
 with a leading ``repeat`` dim (stacked across the layers of the stage).
 Sliding-window layers hold a ring buffer of ``T = min(window + chunk,
-max_len)`` slots (rounded up to 256). K/V are stored in bfloat16.
+max_len)`` slots (rounded up to 256). K/V are stored in bfloat16. An
+RWKV-6 ``elem_cache`` is the per-sequence recurrent state
+``{'state': (R,B,H,hd,hd), 'sx_tm': (R,B,d), 'sx_cm': (R,B,d)}`` in
+float32, whatever ``max_len``.
 
 Sequence length is a per-sequence position ``pos`` passed to the model
 (all layers advance in lockstep). Unlike the functional reference, the
@@ -46,9 +49,16 @@ def elem_cache_shape(cfg: ModelConfig, spec: LayerSpec, repeat: int,
     Sliding-window layers get a ring buffer of `window + chunk` slots
     (capped at max_len): a chunked write of S tokens needs window+S-1
     live slots for every query in the chunk to see its full window."""
+    if spec.kind == "rwkv":
+        s = cfg.ssm
+        heads = cfg.d_model // s.head_dim
+        return {"state": ((repeat, batch, heads, s.head_dim, s.head_dim),
+                          torch.float32),
+                "sx_tm": ((repeat, batch, cfg.d_model), torch.float32),
+                "sx_cm": ((repeat, batch, cfg.d_model), torch.float32)}
     if spec.kind != "attn" or cfg.attention_kind != "gqa":
         raise NotImplementedError(
-            f"{cfg.name}: only GQA attention layers are ported "
+            f"{cfg.name}: only GQA attention and RWKV-6 layers are ported "
             f"(ROADMAP.md Queue 1, item 10)")
     hd = cfg.resolved_head_dim
     if spec.window is None:

@@ -1,7 +1,7 @@
 """On a CUDA card: the port's hand-written kernels against their plain
-PyTorch versions, and the dense and paged model paths through them
-against the same code on the CPU. Imports no JAX, so it runs where only
-the port is installed:
+PyTorch versions, and the dense (GQA and RWKV-6) and paged model paths
+through them against the same code on the CPU. Imports no JAX, so it
+runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
@@ -18,6 +18,7 @@ from repro_torch.kernels import chunk_prefill as tcp  # noqa: E402
 from repro_torch.kernels import decode_attention as tdec  # noqa: E402
 from repro_torch.kernels import flash_prefill as tfp  # noqa: E402
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as tscan  # noqa: E402
 from repro_torch.models.transformer import apply_model, init_params  # noqa: E402
 from repro_torch.serving import kv_cache as kvc  # noqa: E402
 
@@ -163,3 +164,95 @@ def test_paged_model_on_card_matches_cpu(cuda):
         outs[str(dev)] = got
     for a, b in zip(outs["cpu"], outs[str(cuda)]):
         torch.testing.assert_close(b, a, rtol=5e-3, atol=5e-3)
+
+
+def _scan_inputs(rs, B, S, H, hd, dev, dtype):
+    """tests/test_kernels.py's distributions: r, k, v ~ N(0, 0.25), w in
+    (0.4, 0.9), u ~ N(0, 0.01), state0 ~ N(0, 0.01)."""
+    r, k, v = [_randn(rs, (B, S, H, hd), dev, torch.float32) * 0.5
+               for _ in range(3)]
+    w = torch.sigmoid(_randn(rs, (B, S, H, hd), dev, torch.float32)) * 0.5 \
+        + 0.4
+    u = _randn(rs, (H, hd), dev, torch.float32) * 0.1
+    s0 = _randn(rs, (B, H, hd, hd), dev, torch.float32) * 0.1
+    return [a.to(dtype) for a in (r, k, v, w)] + [u, s0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd", [(1, 64, 2, 32), (2, 128, 4, 64),
+                                      (1, 96, 3, 64), (4, 1, 40, 64)])
+def test_rwkv6_scan_matches_plain(cuda, dtype, B, S, H, hd):
+    """K6 at tests/test_kernels.py's sweep shapes and one decode step at
+    RWKV-6 3B's heads: y and the final state. Tolerance 2e-4 with fp32
+    inputs (the summation order differs), 2e-2 with bf16 inputs (both
+    sides read the same bf16 values; kept at the bf16 level of the other
+    kernels)."""
+    xs = _scan_inputs(np.random.RandomState(B * 10 + S), B, S, H, hd, cuda,
+                      dtype)
+    n0 = tscan.rwkv6_scan.launches
+    y, st = tscan.rwkv6_scan(*xs)
+    torch.cuda.synchronize()
+    assert tscan.rwkv6_scan.launches == n0 + 1
+    y_plain, st_plain = tscan.rwkv6_scan_plain(*xs)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y, y_plain, rtol=tol, atol=tol)
+    torch.testing.assert_close(st, st_plain, rtol=tol, atol=tol)
+
+
+def test_rwkv6_scan_in_place_state_and_carry(cuda):
+    """The final state written over state0 (the engine's in-place cache
+    update), and two halves with the carried state equal to one scan."""
+    xs = _scan_inputs(np.random.RandomState(3), 2, 100, 4, 64, cuda,
+                      torch.float32)
+    y_full, s_full = tscan.rwkv6_scan(*xs)
+    state = xs[5].clone()
+    y1, s1 = tscan.rwkv6_scan(*[a[:, :37].contiguous() for a in xs[:4]],
+                              xs[4], state, out_state=state)
+    assert s1 is state
+    y2, s2 = tscan.rwkv6_scan(*[a[:, 37:].contiguous() for a in xs[:4]],
+                              xs[4], state, out_state=state)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y_full, rtol=2e-4,
+                               atol=2e-4)
+    torch.testing.assert_close(state, s_full, rtol=2e-4, atol=2e-4)
+    with pytest.raises(ValueError, match="contiguous"):
+        tscan.rwkv6_scan(*[a[:, ::2] for a in xs[:4]], xs[4], xs[5])
+
+
+def test_rwkv_model_on_card_matches_cpu(cuda):
+    """Reduced RWKV-6 (hd 32): prefill 16 then 3 decode steps on a dense
+    recurrent cache, on the card (K6 once per layer per forward) against
+    the CPU; logits and every cache leaf within 1e-3 (fp32 throughout;
+    the card's matmuls sum in another order)."""
+    cfg = get_config("rwkv6-3b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         torch.float32, "cpu")
+    toks = np.random.RandomState(2).randint(0, cfg.vocab_size, (2, 19))
+    sched = [(0, 16), (16, 17), (17, 18), (18, 19)]
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = tree_to(params, dev)
+        cache = kvc.init_cache(cfg, 2, 64, device=dev)
+        n0 = tscan.rwkv6_scan.launches
+        got = []
+        with torch.inference_mode():
+            for lo, hi in sched:
+                logits, cache = apply_model(
+                    cfg, p, torch.as_tensor(toks[:, lo:hi], device=dev),
+                    cache, lo)
+                got.append(logits.float().cpu())
+        got += [t.float().cpu() for t in cache["stages"][0][0].values()]
+        outs[str(dev)] = got
+        layers = cfg.stages[0].repeat
+        assert tscan.rwkv6_scan.launches - n0 == \
+            (0 if dev == "cpu" else layers * len(sched))
+    for a, b in zip(outs["cpu"], outs[str(cuda)]):
+        torch.testing.assert_close(b, a, rtol=1e-3, atol=1e-3)
+
+
+def test_paged_pool_refuses_rwkv():
+    """Recurrent state is per sequence, not per token: the paged pool
+    refuses RWKV layers, as the reference's does (no card needed: it
+    raises before allocating)."""
+    with pytest.raises(ValueError, match="rwkv"):
+        kvc.init_paged_pool(get_config("rwkv6-3b"), 8, 16)
