@@ -10,7 +10,10 @@ Phases, in order; any failure exits non-zero:
      the card, at the main paths' shapes (TinyLlama-1.1B heads; the paged
      kernels over a 129-block x 16 bf16 pool with shuffled physical blocks
      and two rows sharing prefix blocks), then timed beside its plain
-     version and one library call.
+     version and one library call: back-to-back calls between CUDA events
+     (``ms``, which at decode sizes reads the wrapper's host work) and the
+     device time of the kernels one call launches, from torch.profiler
+     (``device_ms``), for the kernel and for the library call.
   4. model: TinyLlama-1.1B at full width cut to 2 layers (random weights
      from a seeded torch.Generator): prefill, Pass-3 partial prefill and
      decode on the card through the kernels, against the same code on the
@@ -28,6 +31,11 @@ Phases, in order; any failure exits non-zero:
      against CPU (prefill 100, 8 decode steps, a two-chunk prefill); then
      naive-RAG under Teola with the full 32-layer RWKV-6 3B as the core
      LLM on the dense path; 1 warm-up query, then 4 together.
+
+After each serve window one more query runs under torch.profiler: the
+card's busy share and, per hand-written kernel wrapper, the device time
+of everything it launched (K2 and K3: a split and a combine pass) per
+call.
 
 Before the last line it prints a JSON line of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -109,6 +117,44 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def _device_rows(prof):
+    """(key, device us, count) of each device-side row the profiler saw
+    (kernels, copies, fills). CPU-op rows are left out: they also carry the
+    time of the kernels they launch, which those kernels' own rows hold."""
+    from torch.autograd import DeviceType
+    return [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 3):
+    """Device time of one call of ``fn`` in ms: every kernel, copy and fill
+    its calls launch, summed by torch.profiler over ``iters`` calls (after
+    ``warmup``) and divided by ``iters``. The profiler now and then returns
+    no device rows for a window; it is then asked again, up to ``tries``
+    windows. None where none of them saw device activity. The inputs stay
+    in the 50 MB L2 cache across the calls."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(t for _, t, _ in _device_rows(prof))
+        if us > 0:
+            return us / iters / 1e3
+    return None
+
+
+def _fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +308,8 @@ def phase_kernels(dev) -> dict:
     dcases = [(1, [300], None, None, torch.float32),
               (4, [1, 130, 300, 512], None, None, torch.float32),
               (4, [1, 130, 300, 512], 64, 50.0, torch.float32),
-              (4, [1, 130, 300, 512], None, None, torch.bfloat16)]
+              (4, [1, 130, 300, 512], None, None, torch.bfloat16),
+              (4, [63, 64, 65, 511], None, None, torch.float32)]
     for B, length, window, cap, qdt in dcases:
         q, k, v, ln, kw = _decode_case(B, length, dev, window, cap, qdt)
         got = decode_attention(q, k, v, ln, **kw)
@@ -277,27 +324,37 @@ def phase_kernels(dev) -> dict:
         prefix = [0, 37, 100, 200][:B]
         q, k, v, kw = _prefill_case(B, Sq, prefix, dev)
         ms = cuda_ms(lambda: flash_prefill(q, k, v, **kw))
+        dev_ms = device_ms(lambda: flash_prefill(q, k, v, **kw))
         plain = cuda_ms(lambda: flash_prefill_plain(q, k, v, **kw))
-        lib = cuda_ms(_sdpa_prefill(q, k, v, kw["prefix_len"]))
+        sdpa = _sdpa_prefill(q, k, v, kw["prefix_len"])
+        lib, lib_dev = cuda_ms(sdpa), device_ms(sdpa)
         nbytes, flops = _prefill_work(q, kw["prefix_len"])
         bound, by = _bound(nbytes, flops)
         print(f"[kernels] flash_prefill B={B} Sq={Sq} T={T} prefix={prefix}"
-              f": kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} "
-              f"ms, bound {bound:.4f} ms ({by})")
-        res["flash_prefill"].update(ms=ms, plain_ms=plain, bound_ms=bound,
-                                    bound_by=by, library_ms=lib)
+              f": kernel {ms:.4f} ms (device {_fmt(dev_ms)}), plain "
+              f"{plain:.4f} ms, sdpa {lib:.4f} ms (device {_fmt(lib_dev)}), "
+              f"bound {bound:.4f} ms ({by})")
+        res["flash_prefill"].update(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                                    bound_ms=bound, bound_by=by,
+                                    library_ms=lib,
+                                    library_device_ms=lib_dev)
     for B, length in ((1, [300]), (4, [1, 130, 300, 512])):
         q, k, v, ln, kw = _decode_case(B, length, dev)
         ms = cuda_ms(lambda: decode_attention(q, k, v, ln))
+        dev_ms = device_ms(lambda: decode_attention(q, k, v, ln))
         plain = cuda_ms(lambda: decode_attention_plain(q, k, v, ln))
-        lib = cuda_ms(_sdpa_decode(q, k, v, ln))
+        sdpa = _sdpa_decode(q, k, v, ln)
+        lib, lib_dev = cuda_ms(sdpa), device_ms(sdpa)
         nbytes, flops = _decode_work(q, ln)
         bound, by = _bound(nbytes, flops)
         print(f"[kernels] decode_attention B={B} T={T} length={length}: "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} "
-              f"ms, bound {bound:.4f} ms ({by})")
-        res["decode_attention"].update(ms=ms, plain_ms=plain, bound_ms=bound,
-                                       bound_by=by, library_ms=lib)
+              f"kernel {ms:.4f} ms (device {_fmt(dev_ms)}: split + "
+              f"combine), plain {plain:.4f} ms, sdpa {lib:.4f} ms (device "
+              f"{_fmt(lib_dev)}), bound {bound:.4f} ms ({by})")
+        res["decode_attention"].update(ms=ms, device_ms=dev_ms,
+                                       plain_ms=plain, bound_ms=bound,
+                                       bound_by=by, library_ms=lib,
+                                       library_device_ms=lib_dev)
     return res
 
 
@@ -378,6 +435,8 @@ def phase_paged_kernels(dev) -> dict:
                   (fn, 4, Sq, pos, None, None, torch.float32),
                   (fn, 4, Sq, pos, 64, 50.0, torch.float32),
                   (fn, 4, Sq, pos, None, None, torch.bfloat16)]
+    cases.append((verify_attention, 4, 4, [64, 65, 129, 511], None, None,
+                  torch.float32))
     for Sq in (64, 128):
         cases += [(chunk_prefill_attention, 1, Sq, [37], None, None,
                    torch.float32),
@@ -414,15 +473,19 @@ def phase_paged_kernels(dev) -> dict:
         q, kp, vp, t, p = _paged_case(fn, len(pos), Sq, pos, dev)
         plain = PAGED_PLAIN[fn]
         ms = cuda_ms(lambda: fn(q, kp, vp, t, p))
+        dev_ms = device_ms(lambda: fn(q, kp, vp, t, p))
         plain_ms = cuda_ms(lambda: plain(q, kp, vp, t, p))
-        lib = cuda_ms(_sdpa_paged(fn, q, kp, vp, t, p))
+        sdpa = _sdpa_paged(fn, q, kp, vp, t, p)
+        lib, lib_dev = cuda_ms(sdpa), device_ms(sdpa)
         bound, by = _bound(*_paged_work(fn, q, p))
         print(f"[kernels] {fn.__name__} B={len(pos)} Sq={Sq} pos={pos} "
-              f"pool {NB}x{BS}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, sdpa on the pre-gathered view {lib:.4f} ms (gather "
-              f"not timed), bound {bound:.4f} ms ({by})")
-        res[fn.__name__].update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                bound_by=by, library_ms=lib)
+              f"pool {NB}x{BS}: kernel {ms:.4f} ms (device {_fmt(dev_ms)})"
+              f", plain {plain_ms:.4f} ms, sdpa on the pre-gathered view "
+              f"{lib:.4f} ms (device {_fmt(lib_dev)}; gather not timed), "
+              f"bound {bound:.4f} ms ({by})")
+        res[fn.__name__].update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                bound_ms=bound, bound_by=by, library_ms=lib,
+                                library_device_ms=lib_dev)
     return res
 
 
@@ -534,11 +597,45 @@ def _busy(engines) -> dict:
             if "busy_s" in getattr(e, "stats", {})}
 
 
-def _profiled_query(teola, docs, card: str):
+# the wrapper that launches each hand-written kernel: K2's and K3's split
+# and combine passes are templates of csrc/split_kv.cuh told apart by
+# their addressing policy; the others are <name>_kernel in an anonymous
+# namespace of their source (K4's is paged_attention_kernel)
+_ANON_KERNELS = (("flash_prefill_kernel<", "flash_prefill"),
+                 ("paged_attention_kernel<", "paged_decode_attention"),
+                 ("chunk_prefill_kernel<", "chunk_prefill_attention"),
+                 ("rwkv6_scan_kernel<", "rwkv6_scan"))
+
+
+def kernel_owner(key: str):
+    """The kernel wrapper whose C entry point launches the kernel the
+    profiler names ``key``, or None for any other kernel."""
+    if key.startswith("void teola::split_kv_"):
+        if "teola::DenseKeys" in key:
+            return "decode_attention"
+        if "teola::PagedKeys" in key:
+            return "verify_attention"
+        return None
+    for name, owner in _ANON_KERNELS:
+        if key.startswith("void (anonymous namespace)::" + name):
+            return owner
+    return None
+
+
+def _short(key: str) -> str:
+    """A kernel's name without its return type, namespace and parameters."""
+    k = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return k.split(">(")[0] + ">" if ">(" in k else k
+
+
+def _profiled_query(teola, docs, card: str, kernels):
     """One more query under torch.profiler: the card's busy share of the
-    query's wall time and the kernels that take it (after the measured
-    window, so the profiler's cost is not in the numbers above)."""
+    query's wall time, the kernels that take it, and per wrapper of
+    ``kernels`` the device time of everything it launched per call (after
+    the measured window, so the profiler's cost is not in the numbers
+    above)."""
     from torch.profiler import ProfilerActivity, profile
+    n0 = {fn.__name__: fn.launches for fn in kernels}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
@@ -548,26 +645,32 @@ def _profiled_query(teola, docs, card: str):
         wall = time.time() - t0
     if ctx.error is not None:
         raise ctx.error
-    evs = [(getattr(e, "self_device_time_total", 0), e.key, e.count)
-           for e in prof.key_averages()]
-    dev_s = sum(t for t, _, _ in evs) / 1e6
+    calls = {fn.__name__: fn.launches - n0[fn.__name__] for fn in kernels}
+    evs = _device_rows(prof)
+    dev_s = sum(t for _, t, _ in evs) / 1e6
     if dev_s <= 0:
         print("[profile] device time: not measured (the profiler saw no "
               "device activity)")
         return
     print(f"[profile] one query under the profiler: wall {wall:.3f} s, "
           f"device busy {dev_s:.3f} s ({100 * dev_s / wall:.1f}%) [{card}]")
-    for t, key, _ in sorted(evs, reverse=True)[:8]:
+    for t, key, _ in sorted(((t, k, n) for k, t, n in evs), reverse=True)[:8]:
         print(f"[profile]   {t / 1e3:9.3f} ms  {key[:90]}")
-    # the hand-written kernels of the path, wherever they rank: each
-    # csrc/<name>.cu defines <name>_kernel in an anonymous namespace
-    prefix = "void (anonymous namespace)::"
-    mine = tuple(f"{prefix}{name}_kernel<" for name in build.SOURCES)
-    for t, key, n in sorted(evs, reverse=True):
-        if key.startswith(mine) and t > 0:
-            print(f"[profile]   hand-written: {key[len(prefix):][:60]}: "
-                  f"{t / 1e3:.3f} ms device over {n} launches "
-                  f"({t / max(1, n):.2f} us each)")
+    mine = {}
+    for key, t, n in evs:
+        owner = kernel_owner(key)
+        if owner is not None and t > 0:
+            mine.setdefault(owner, []).append((t, n, key))
+    for owner, rows in sorted(mine.items()):
+        total = sum(t for t, _, _ in rows)
+        n_calls = calls.get(owner, 0)
+        each = (f"{total / n_calls:.2f} us per wrapper call"
+                if n_calls else "wrapper calls not counted")
+        parts = "; ".join(f"{_short(key)} {t / 1e3:.3f} ms over {n}"
+                          for t, n, key in sorted(rows, reverse=True))
+        print(f"[profile]   hand-written {owner}: {total / 1e3:.3f} ms device"
+              f" over {n_calls} wrapper calls ({each}) [{card}]; kernels: "
+              f"{parts}")
 
 
 def _warm_up(teola, docs) -> float:
@@ -653,7 +756,7 @@ def phase_serve(dev, card: str, model="tinyllama-1.1b",
         busy = {k: v - busy0[k] for k, v in _busy(engines).items()}
         stats = dict(core.stats)
         dec = stats["decode_tokens"] - dec0
-        _profiled_query(teola, docs, card)
+        _profiled_query(teola, docs, card, kernels)
     finally:
         teola.shutdown()
     answers = _check_answers(ctxs)
@@ -694,7 +797,7 @@ def phase_serve_paged(dev, card: str, dense_answers):
         dec = core.stats["decode_tokens"] - dec0
         spec = dict(core.spec.stats)
         radix = dict(core.radix.stats)
-        _profiled_query(teola, docs, card)
+        _profiled_query(teola, docs, card, PAGED)
     finally:
         teola.shutdown()
     answers = _check_answers(ctxs)
@@ -798,13 +901,15 @@ def phase_rwkv_kernel(dev) -> dict:
     for S in (512, 128, 64, 1):
         xs = _scan_case(4, S, 40, 64, dev, torch.float32)
         ms = cuda_ms(lambda: rwkv6_scan(*xs))
+        dev_ms = device_ms(lambda: rwkv6_scan(*xs))
         plain = cuda_ms(lambda: rwkv6_scan_plain(*xs), iters=5, warmup=1)
         bound, by = _bound(*_scan_work(xs[0]))
         print(f"[rwkv] rwkv6_scan B=4 S={S} H=40 hd=64 fp32: kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms "
-              f"({by}); no single PyTorch call computes the recurrence")
-        res.update(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                   library_ms=None)
+              f"{ms:.4f} ms (device {_fmt(dev_ms)}), plain {plain:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}); no single PyTorch call "
+              f"computes the recurrence")
+        res.update(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound,
+                   bound_by=by, library_ms=None, library_device_ms=None)
     return res
 
 
@@ -909,7 +1014,9 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        "device_ms": r["device_ms"],
+                        "library_device_ms": r["library_device_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

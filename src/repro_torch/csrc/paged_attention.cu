@@ -1,8 +1,8 @@
 // Paged GQA attention over the block-paged KV pool, for Hopper (sm_90a):
-// decode (one query per sequence) and speculative verification (a chunk of
-// Sq queries per sequence). Replaces the Pallas TPU kernels
-// src/repro/kernels/decode_attention.py::paged_decode_attention
-// (_paged_kernel) and ::verify_attention (_verify_kernel).
+// decode (one query per sequence, K4) and speculative verification (a
+// chunk of Sq queries per sequence, K3). Replaces the Pallas TPU kernels
+// src/repro/kernels/decode_attention.py:281 paged_decode_attention
+// (_paged_kernel) and :232 verify_attention (_verify_kernel).
 //
 // Sequence b's logical key j lives in physical block table[b, j / bs] at
 // row j % bs of the (num_blocks, bs, K, hd) pools. Query s of the chunk sits
@@ -10,27 +10,28 @@
 //   j <= length[b] - Sq + s  (and j > that position - window).
 // Decode is the Sq = 1 case: keys j < length[b].
 //
-// Design: K2's (decode_attention.cu), reading K/V through the block table.
-// One CTA per (kv head, sequence) holds all R = Sq * G query rows of its
-// group in the reference's (K, Sq*G) row layout (row s*G + g is chunk
-// position s of head kvh*G + g), so each K/V row is read once for every
-// head and chunk position that needs it. The CTA walks tiles of BK = 128
-// logical keys (8 blocks of 16 rows) up to min(length, maxblk * bs): each
-// thread looks up one key's physical row through the table, then the tile
-// is staged in shared memory as fp32. Per tile, thread j scores key j
-// against the R rows, one warp per row runs the fp32 online-softmax update
-// (NEG_INF sentinel, 1e-30 floor on the denominator, as in the reference),
-// and each thread accumulates its share of the R x hd output in registers.
-// Blocks past the last valid key are never read, so out-of-table positions
-// and the shared pad block are never touched by a real row.
+// K3 (verify_attention_launch): split-KV, the paged instance of
+// split_kv.cuh. A CTA holds all R = Sq * G query rows of one (kv head,
+// sequence) in the reference's (K, Sq*G) row layout over one 64-key chunk,
+// looking each key's physical row up through the table; a combine pass
+// merges the chunks. What bounds it on the H100: bytes, at about Sq*G
+// flops per byte of K/V (32 for a k=3 verify chunk at TinyLlama's G = 8),
+// under the ridge; fp32 q, no tensor cores. The split gives
+// ceil(maxblk*bs / 64) * K * B CTAs (128 at batch 4 over 512 keys), which
+// is what the latency of a short decode-time call needs. Only rows of
+// visible keys are copied, so out-of-table positions and the shared pad
+// block are never read by a real row.
 //
-// What bounds it on the H100: ~4*R*hd flops per K/V row against 4*hd bytes
-// (bf16 K and V), i.e. about R flops per byte (8 for decode, 32 for a k=3
-// verify chunk at TinyLlama's G = 8): memory-bound at these shapes. With
-// B*K CTAs (16 at batch 4 for TinyLlama) the card is far from saturated;
-// split-KV across CTAs with a combine pass is the later fix (ROADMAP.md
-// Queue 2), as for K2.
-#include "common.cuh"
+// K4 (paged_decode_launch): one CTA per (kv head, sequence) walking
+// tiles of BK = 128 logical keys up to min(length, maxblk * bs). Each
+// thread looks up one key's physical row, and the tile is staged in
+// shared memory as fp32; per tile, thread j scores key j against the G
+// rows, one warp per row runs the fp32 online-softmax update (NEG_INF
+// sentinel, 1e-30 floor, as in the reference), and each thread
+// accumulates its share of the G x hd output in registers. It is bound by
+// latency with B*K CTAs (16 at batch 4); moving it onto split_kv.cuh as
+// K3 is ROADMAP.md Queue 2's next step.
+#include "split_kv.cuh"
 
 namespace {
 
@@ -182,11 +183,13 @@ paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
   }
 }
 
-template <int HD, int MAXR, typename TQ, typename TKV>
-int launch_rows(const void* q, const void* kp, const void* vp, void* o,
-                const int* tables, const int* length, int B, int Sq, int H,
-                int K, int bs, int maxblk, float scale, int window, float cap,
-                cudaStream_t stream) {
+// decode holds at most MAXR = 16 rows (G <= 16)
+template <int HD, typename TQ, typename TKV>
+int launch_decode(const void* q, const void* kp, const void* vp, void* o,
+                  const int* tables, const int* length, int B, int Sq, int H,
+                  int K, int bs, int maxblk, float scale, int window,
+                  float cap, cudaStream_t stream) {
+  constexpr int MAXR = 16;
   const int R = Sq * (H / K);
   if (R > MAXR) return (int)cudaErrorInvalidValue;
   auto kern = paged_attention_kernel<HD, MAXR, TQ, TKV>;
@@ -200,27 +203,6 @@ int launch_rows(const void* q, const void* kp, const void* vp, void* o,
       static_cast<const TKV*>(vp), static_cast<TQ*>(o), tables, length, Sq,
       H, K, bs, maxblk, scale, window, cap);
   return (int)cudaGetLastError();
-}
-
-// decode holds at most 16 rows (G <= 16), verify at most 64 (Sq * G)
-template <int HD, typename TQ, typename TKV>
-int launch_decode(const void* q, const void* kp, const void* vp, void* o,
-                  const int* tables, const int* length, int B, int Sq, int H,
-                  int K, int bs, int maxblk, float scale, int window,
-                  float cap, cudaStream_t stream) {
-  return launch_rows<HD, 16, TQ, TKV>(q, kp, vp, o, tables, length, B, Sq, H,
-                                      K, bs, maxblk, scale, window, cap,
-                                      stream);
-}
-
-template <int HD, typename TQ, typename TKV>
-int launch_verify(const void* q, const void* kp, const void* vp, void* o,
-                  const int* tables, const int* length, int B, int Sq, int H,
-                  int K, int bs, int maxblk, float scale, int window,
-                  float cap, cudaStream_t stream) {
-  return launch_rows<HD, 64, TQ, TKV>(q, kp, vp, o, tables, length, B, Sq, H,
-                                      K, bs, maxblk, scale, window, cap,
-                                      stream);
 }
 
 }  // namespace
@@ -241,19 +223,23 @@ extern "C" int paged_decode_launch(const void* q, const void* kp,
                  static_cast<cudaStream_t>(stream));
 }
 
-// q/o (B,Sq,H,hd); the rest as paged_decode_launch. length counts the Sq
-// chunk positions: query s sits at length - Sq + s.
+// q/o (B,Sq,H,hd); pools, tables, length as paged_decode_launch; ws:
+// ws_floats fp32 scratch on the device (split_kv_workspace(B, K,
+// maxblk*bs, Sq*H/K, hd) of them). length counts the Sq chunk positions:
+// query s sits at length - Sq + s.
 extern "C" int verify_attention_launch(const void* q, const void* kp,
                                        const void* vp, void* o,
                                        const int* tables, const int* length,
-                                       int B, int Sq, int H, int K, int bs,
+                                       float* ws, long long ws_floats, int B,
+                                       int Sq, int H, int K, int bs,
                                        int maxblk, int hd, int q_dtype,
                                        int kv_dtype, float scale, int window,
                                        float cap, void* stream) {
   if (B <= 0 || Sq <= 0 || K <= 0 || H % K != 0 || bs <= 0 || maxblk <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  TEOLA_DISPATCH(hd, q_dtype, kv_dtype, launch_verify, q, kp, vp, o, tables,
-                 length, B, Sq, H, K, bs, maxblk, scale, window, cap,
+  TEOLA_DISPATCH(hd, q_dtype, kv_dtype, teola::split_kv_launch, q, kp, vp, o,
+                 length, (teola::PagedKeys{tables, bs, maxblk}), maxblk * bs,
+                 ws, ws_floats, B, Sq, H, K, scale, window, cap,
                  static_cast<cudaStream_t>(stream));
 }

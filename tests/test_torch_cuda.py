@@ -256,3 +256,135 @@ def test_paged_pool_refuses_rwkv():
     raises before allocating)."""
     with pytest.raises(ValueError, match="rwkv"):
         kvc.init_paged_pool(get_config("rwkv6-3b"), 8, 16)
+
+
+# ---------------------------------------------------------------------------
+# K2 / K3 split-KV kernels: chunk edges, CUDA-graph capture, host threads
+
+EDGE_LENGTHS = [1, 63, 64, 65, 127, 128, 129, 511, 512]
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("T", [512, 200])
+@pytest.mark.parametrize("window,cap", [(None, None), (100, 50.0)])
+def test_split_decode_at_chunk_edges(cuda, qdt, hd, T, window, cap):
+    """K2 with G = 16 (its largest group) at lengths on and beside the
+    64-key split edges, over a full 512-slot cache and a ragged T = 200
+    (the last split masked), against its plain version."""
+    lengths = [min(n, T) for n in EDGE_LENGTHS]
+    B, K = len(lengths), 2
+    rs = np.random.RandomState(20)
+    q = _randn(rs, (B, 16 * K, hd), cuda, qdt)
+    k = _randn(rs, (B, T, K, hd), cuda, torch.bfloat16)
+    v = _randn(rs, (B, T, K, hd), cuda, torch.bfloat16)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    _launch_and_compare(tdec.decode_attention, tdec.decode_attention_plain,
+                  (q, k, v, ln), dict(window=window, cap=cap),
+                  2e-5 if qdt == torch.float32 else 2e-2)
+
+
+def _verify_inputs(rs, B, Sq, H, K, hd, bs, maxblk, dev, qdt):
+    """A bf16 pool with shuffled physical blocks, rows 0 and 1 sharing
+    their first two blocks as a copy-on-write fork does."""
+    nb = B * maxblk + 1
+    kp = _randn(rs, (nb, bs, K, hd), dev, torch.bfloat16)
+    vp = _randn(rs, (nb, bs, K, hd), dev, torch.bfloat16)
+    t = rs.permutation(np.arange(1, nb))[:B * maxblk].reshape(B, maxblk)
+    t[1, :2] = t[0, :2]
+    q = _randn(rs, (B, Sq, H, hd), dev, qdt)
+    return q, kp, vp, torch.tensor(t, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("bs,maxblk", [(16, 32), (8, 25)])
+@pytest.mark.parametrize("window,cap", [(None, None), (100, 50.0)])
+@pytest.mark.parametrize("Sq,G", [(8, 8), (4, 16)])
+def test_split_verify_at_chunk_edges(cuda, qdt, hd, bs, maxblk, window, cap,
+                                     Sq, G):
+    """K3 with R = Sq * G = 64 rows (its most) at total lengths on and
+    beside the split edges (at least Sq: the chunk's own positions are in
+    the cache), over 512 keys and a ragged 200, against its plain
+    version."""
+    span = bs * maxblk
+    lengths = [max(Sq, min(n, span)) for n in EDGE_LENGTHS]
+    B, K = len(lengths), 2
+    q, kp, vp, t = _verify_inputs(np.random.RandomState(21), B, Sq, G * K,
+                                  K, hd, bs, maxblk, cuda, qdt)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    _launch_and_compare(tpa.verify_attention, tpa.verify_attention_plain,
+                  (q, kp, vp, t, ln), dict(window=window, cap=cap),
+                  2e-5 if qdt == torch.float32 else 2e-2)
+
+
+def test_split_kernels_in_a_cuda_graph(cuda):
+    """K2 and K3 captured in one CUDA graph, then replayed after their
+    length tensors are rewritten in place: each replay equals an eager
+    call on the new lengths bit for bit, and the plain version within
+    2e-5. So the wrappers read no length on the host, and the per-call
+    workspace is valid under capture."""
+    rs = np.random.RandomState(22)
+    B, H, K, hd, T = 4, 32, 4, 64, 512
+    q = _randn(rs, (B, H, hd), cuda, torch.float32)
+    k = _randn(rs, (B, T, K, hd), cuda, torch.bfloat16)
+    v = _randn(rs, (B, T, K, hd), cuda, torch.bfloat16)
+    qv, kp, vp, t = _verify_inputs(rs, B, 4, H, K, hd, 16, 32, cuda,
+                                   torch.float32)
+    ln_d = torch.tensor([1, 130, 300, 512], dtype=torch.int32, device=cuda)
+    ln_v = torch.tensor([4, 130, 300, 512], dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # build, attributes, allocator
+        tdec.decode_attention(q, k, v, ln_d)
+        tpa.verify_attention(qv, kp, vp, t, ln_v)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        od = tdec.decode_attention(q, k, v, ln_d)
+        ov = tpa.verify_attention(qv, kp, vp, t, ln_v)
+    for new_d, new_v in (([64, 65, 511, 2], [64, 65, 511, 5]),
+                         ([512, 1, 129, 63], [512, 8, 129, 63])):
+        ln_d.copy_(torch.tensor(new_d, dtype=torch.int32))
+        ln_v.copy_(torch.tensor(new_v, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(od, tdec.decode_attention(q, k, v, ln_d))
+        assert torch.equal(ov, tpa.verify_attention(qv, kp, vp, t, ln_v))
+        torch.testing.assert_close(
+            od, tdec.decode_attention_plain(q, k, v, ln_d), rtol=2e-5,
+            atol=2e-5)
+        torch.testing.assert_close(
+            ov, tpa.verify_attention_plain(qv, kp, vp, t, ln_v), rtol=2e-5,
+            atol=2e-5)
+
+
+def test_split_verify_from_two_host_threads(cuda):
+    """Two host threads call K3 200 times each on different inputs onto
+    one stream, as the engines do; every result equals its plain version,
+    so no call's partials reach another call's combine."""
+    import threading
+    cases = []
+    for seed, lengths in ((23, [4, 200, 377, 512]), (24, [512, 64, 9, 300])):
+        q, kp, vp, t = _verify_inputs(np.random.RandomState(seed), 4, 4,
+                                      32, 4, 64, 16, 32, cuda,
+                                      torch.float32)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+        cases.append((q, kp, vp, t, ln))
+    wants = [tpa.verify_attention_plain(*c) for c in cases]
+    outs = [[], []]
+
+    def work(i):
+        for _ in range(200):
+            outs[i].append(tpa.verify_attention(*cases[i]))
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    for want, got in zip(wants, outs):
+        assert len(got) == 200
+        for o in got:
+            torch.testing.assert_close(o, want, rtol=2e-5, atol=2e-5)
