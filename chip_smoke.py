@@ -5,7 +5,9 @@
 
 Phases, in order; any failure exits non-zero:
   1. toolchain: the card (nvidia-smi), torch / CUDA versions, nvcc, triton.
-  2. build: nvcc compiles every kernel source, all at once.
+  2. build: nvcc compiles every kernel source, all at once; per kernel,
+     registers and spills from ptxas; the tensor-core instructions in
+     K1's SASS (cuobjdump).
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the card, at the main paths' shapes (TinyLlama-1.1B heads; the paged
      kernels over a 129-block x 16 bf16 pool with shuffled physical blocks
@@ -34,8 +36,8 @@ Phases, in order; any failure exits non-zero:
 
 After each serve window one more query runs under torch.profiler: the
 card's busy share and, per hand-written kernel wrapper, the device time
-of everything it launched (K2 and K3: a split and a combine pass) per
-call.
+of everything it launched (K2, K3 and K4: a split and a combine pass)
+per call.
 
 Before the last line it prints a JSON line of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -49,6 +51,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -85,6 +88,10 @@ from repro_torch.training.data import doc_corpus  # noqa: E402
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12                # dense bf16 tensor cores
+# K1 on the tensor cores: an fp32 q and fp32 probabilities in three bf16
+# pieces each, three bf16 products per fp32 one
+K1_PIECES = 3
 # kernel vs plain version, on the same inputs (fp32 accumulation in both;
 # bf16 outputs are compared at bf16 resolution)
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -175,6 +182,42 @@ def phase_toolchain(card: str):
         print(f"[toolchain] triton does not import ({e})")
 
 
+def ptxas_kernels(text: str):
+    """[(kernel, registers, spill store bytes, spill load bytes)] from
+    nvcc's -Xptxas -v output, kernel names demangled (where c++filt is
+    found) and shortened as the profile's are."""
+    rows, name, spill = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append([name, int(m.group(1)), *spill])
+            name = None
+    if rows and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True).stdout
+        for r, dm in zip(rows, out.splitlines()):
+            r[0] = _short(dm)
+    return [tuple(r) for r in rows]
+
+
+def sass_tensor_ops(path: str) -> dict:
+    """Counts of HGMMA (wgmma) and HMMA (mma.sync) instructions in a
+    library's SASS, from cuobjdump next to nvcc."""
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\.", sass))
+            for op in ("HGMMA", "HMMA")}
+
+
 def phase_build():
     t0 = time.time()
     log = build.build_all()
@@ -182,9 +225,14 @@ def phase_build():
           f"(nvcc in parallel)")
     for name, rec in log.items():
         print(f"[build] {name}: {rec['seconds']:.1f} s")
-        for line in rec["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build]   {line.strip()}")
+        for kern, regs, st, ld in ptxas_kernels(rec["ptxas"]):
+            print(f"[build]   {kern}: {regs} registers per thread, spills "
+                  f"{st} B stored / {ld} B loaded")
+    ops = sass_tensor_ops(log["flash_prefill"]["path"])
+    print(f"[build] flash_prefill SASS: {ops['HGMMA']} HGMMA, {ops['HMMA']} "
+          f"HMMA instructions")
+    if ops["HGMMA"] + ops["HMMA"] == 0:
+        raise AssertionError("flash_prefill runs no tensor-core instruction")
 
 
 # ---------------------------------------------------------------------------
@@ -233,8 +281,8 @@ def _decode_work(q, length):
     return nbytes, flops
 
 
-def _bound(nbytes, flops):
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+def _bound(nbytes, flops, flops_per_s=FP32_FLOPS):
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -330,12 +378,16 @@ def phase_kernels(dev) -> dict:
         lib, lib_dev = cuda_ms(sdpa), device_ms(sdpa)
         nbytes, flops = _prefill_work(q, kw["prefix_len"])
         bound, by = _bound(nbytes, flops)
+        tc_bound, tc_by = _bound(nbytes, K1_PIECES * flops, BF16_TC_FLOPS)
         print(f"[kernels] flash_prefill B={B} Sq={Sq} T={T} prefix={prefix}"
               f": kernel {ms:.4f} ms (device {_fmt(dev_ms)}), plain "
               f"{plain:.4f} ms, sdpa {lib:.4f} ms (device {_fmt(lib_dev)}), "
-              f"bound {bound:.4f} ms ({by})")
+              f"bound {bound:.4f} ms ({by}, fp32 at 67 TFLOP/s), "
+              f"tensor-core bound {tc_bound:.4f} ms ({tc_by}, {K1_PIECES} "
+              f"bf16 products per fp32 one at 989 TFLOP/s)")
         res["flash_prefill"].update(ms=ms, device_ms=dev_ms, plain_ms=plain,
                                     bound_ms=bound, bound_by=by,
+                                    tc_bound_ms=tc_bound,
                                     library_ms=lib,
                                     library_device_ms=lib_dev)
     for B, length in ((1, [300]), (4, [1, 130, 300, 512])):
@@ -597,24 +649,26 @@ def _busy(engines) -> dict:
             if "busy_s" in getattr(e, "stats", {})}
 
 
-# the wrapper that launches each hand-written kernel: K2's and K3's split
-# and combine passes are templates of csrc/split_kv.cuh told apart by
-# their addressing policy; the others are <name>_kernel in an anonymous
-# namespace of their source (K4's is paged_attention_kernel)
+# the wrapper that launches each hand-written kernel: K2's, K3's and K4's
+# split and combine passes are templates of csrc/split_kv.cuh told apart
+# by their addressing policy; the others are <name>_kernel in an anonymous
+# namespace of their source (K1's fp32-K/V body in a nested one)
 _ANON_KERNELS = (("flash_prefill_kernel<", "flash_prefill"),
-                 ("paged_attention_kernel<", "paged_decode_attention"),
+                 ("fp32kv::flash_prefill_fp32kv_kernel<", "flash_prefill"),
                  ("chunk_prefill_kernel<", "chunk_prefill_attention"),
                  ("rwkv6_scan_kernel<", "rwkv6_scan"))
+_SPLIT_KEYS = (("teola::DenseKeys", "decode_attention"),
+               ("teola::PagedKeys", "verify_attention"),
+               ("teola::PagedDecodeKeys", "paged_decode_attention"))
 
 
 def kernel_owner(key: str):
     """The kernel wrapper whose C entry point launches the kernel the
     profiler names ``key``, or None for any other kernel."""
     if key.startswith("void teola::split_kv_"):
-        if "teola::DenseKeys" in key:
-            return "decode_attention"
-        if "teola::PagedKeys" in key:
-            return "verify_attention"
+        for policy, owner in _SPLIT_KEYS:
+            if policy in key:
+                return owner
         return None
     for name, owner in _ANON_KERNELS:
         if key.startswith("void (anonymous namespace)::" + name):
@@ -1017,6 +1071,8 @@ def main() -> int:
                         "library_ms": r["library_ms"],
                         "device_ms": r["device_ms"],
                         "library_device_ms": r["library_device_ms"]})
+        if "tc_bound_ms" in r:
+            kernels[-1]["tc_bound_ms"] = r["tc_bound_ms"]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -87,4 +87,36 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Where key j of sequence b, kv head kvh, lives: row(...) * hd is the
+// element offset of its K (and V) row. The split-KV template
+// (split_kv.cuh) and the flash tile core (flash_tile.cuh) take one of
+// these as their addressing policy.
+
+// Dense cache (B, T, K, hd): key j of sequence b is row (b*T + j)*K + kvh.
+struct DenseKeys {
+  int T;
+  __device__ __forceinline__ int span() const { return T; }
+  __device__ __forceinline__ long long row(int b, int j, int kvh,
+                                           int K) const {
+    return ((long long)b * T + j) * K + kvh;
+  }
+};
+
+// Paged pool (nb, bs, K, hd) read through tables (B, maxblk): key j of
+// sequence b is row (table[b, j / bs]*bs + j % bs)*K + kvh.
+struct PagedKeys {
+  const int* tables;
+  int bs, maxblk;
+  __device__ __forceinline__ int span() const { return maxblk * bs; }
+  __device__ __forceinline__ long long row(int b, int j, int kvh,
+                                           int K) const {
+    const int phys = tables[(size_t)b * maxblk + j / bs];
+    return ((long long)phys * bs + j % bs) * K + kvh;
+  }
+};
+
+// K4's paged addressing: PagedKeys under a name of its own, so that its
+// instantiations (and the profiler's kernel names) stay apart from K3's.
+struct PagedDecodeKeys : PagedKeys {};
+
 }  // namespace teola

@@ -1,6 +1,6 @@
 // Chunked-prefill flash attention against a resident dense KV prefix, for
 // Hopper (sm_90a). Replaces the Pallas TPU kernel
-// src/repro/kernels/flash_prefill.py::flash_prefill (_kernel).
+// src/repro/kernels/flash_prefill.py:75 flash_prefill (_kernel).
 //
 // A chunk of Sq queries of sequence b sits at absolute positions
 // prefix[b] + i; K/V (B, T, K, hd) already hold the chunk at
@@ -8,26 +8,156 @@
 //   j <= prefix[b] + i  and  j < total[b]  (and j > q_pos - window).
 // GQA: query head h reads kv head h / (H / K); K/V are never repeated.
 //
-// Design: one CTA per (q tile of BQ rows, query head, sequence), 128
-// threads, 4 per query row. The CTA walks KV tiles of BK keys up to its
-// causal limit min(T, total[b], prefix[b] + q_tile_end) (tiles past it are
-// never loaded: the causal block skip of the reference) and, with a
-// window, from the first tile the window reaches. K/V tiles are staged in
-// shared memory as fp32 (rows padded by one word against bank conflicts);
-// scores, the running max / denominator and the output accumulator stay
-// in registers: the fp32 online softmax of the reference, with its
-// NEG_INF sentinel and its 1e-30 floor on the denominator.
-//
 // What bounds it on the H100: at the main path's shapes (hd 64, G 8,
-// Sq <= 512) the work is ~4*Sq*T_eff*hd flops per head against
-// 2*T_eff*K*hd*2 bytes of KV per sequence, far above the card's
-// flop:byte ridge, so it is compute-bound. This first version computes in
-// fp32 on the CUDA cores from shared memory (about one shared load per
-// FMA) and uses no tensor cores; wgmma on bf16 tiles and TMA loads are
-// later work (ROADMAP.md Queue 2).
-#include "common.cuh"
+// Sq <= 512) about 4*hd flops per visible (query head, key) pair against
+// 4*hd bytes of bf16 K/V per key and kv head: hundreds of flops per byte,
+// above the ridge, so the arithmetic bounds it. On the CUDA cores in fp32
+// that is 67 TFLOP/s; on the tensor cores in bf16, 989 TFLOP/s, at three
+// bf16 products per fp32 one (below).
+//
+// Design (bf16 K/V, every engine's cache): flash_prefill_kernel, built
+// from flash_tile.cuh.
+//  - GQA packing: one CTA per (tile of BQ query positions, kv head,
+//    sequence), its 128 rows the (position, head-in-group) pairs, position
+//    major: BQ = 128 / G positions (16 at TinyLlama's G = 8). Each K/V tile
+//    is read once for all G heads of its group. A G that does not divide
+//    128 pads rows; G > 128 takes ceil(G / 128) CTAs per kv head.
+//  - K/V tiles of 64 keys in bf16, copied by 16-byte cp.async into a ring
+//    of two stages in shared memory, 128-byte swizzled; the next tile's
+//    copies fly while this tile computes. The CTA walks tiles from the
+//    window's first (0 without one) up to its causal limit min(T,
+//    total[b], prefix[b] + last position + 1): tiles past it are never
+//    loaded.
+//  - Both products on the tensor cores: wgmma.mma_async m64nNk16, bf16
+//    operands, fp32 accumulation. S = Q K^T reads Q's pieces and K from
+//    shared memory; O += P V takes P from registers and V from shared
+//    memory, all through 128-byte-swizzle matrix descriptors.
+//  - Split precision: an fp32 q is stored once as three bf16 pieces, and
+//    P is split into three pieces after the fp32 softmax; one MMA per
+//    piece, into one fp32 accumulator. A bf16 q is exact in one piece. TF32
+//    is not used. flash_tile.cuh gives the arithmetic and its accuracy.
+//  - The softmax is the reference's fp32 online softmax in registers, with
+//    its NEG_INF sentinel and its 1e-30 floor on the denominator.
+//
+// fp32 K/V (dispatched, stored by no engine path): K and V are not bf16,
+// so they are not exact tensor-core operands. flash_prefill_fp32kv_kernel
+// keeps the first port's CUDA-core body for that dtype pair only: one CTA
+// per (32-row q tile, query head, sequence), K/V tiles staged in shared
+// memory as fp32, scalar fp32 FMAs.
+#include <type_traits>
+
+#include "flash_tile.cuh"
 
 namespace {
+
+using teola::NEG_INF;
+namespace ft = teola::ft;
+
+template <int HD, typename TQ>
+__global__ void __launch_bounds__(ft::NT, 1)
+flash_prefill_kernel(const TQ* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, TQ* __restrict__ o,
+                     const int* __restrict__ prefix,
+                     const int* __restrict__ total, int Sq, int H, int K,
+                     int T, int GC, int NHC, float scale, int window,
+                     float cap) {
+  // pieces of Q: three of an fp32 q, a bf16 q as it is
+  constexpr int NQ = std::is_same<TQ, float>::value ? ft::NP : 1;
+  constexpr int TB = ft::tile_bytes<HD>(), SB = ft::stage_bytes<HD>();
+  const int G = H / K, BQ = ft::ROWS / GC;
+  const int q0 = blockIdx.x * BQ, b = blockIdx.z;
+  const int kvh = blockIdx.y / NHC, hc = blockIdx.y % NHC;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int pre = prefix[b], tot = total[b];
+  const int npos = min(BQ, Sq - q0);   // query positions of this tile
+  const int lim = min(T, tot);         // keys any row may see
+  const int hi = min(lim, pre + q0 + npos);
+  int lo = window > 0 ? max(0, pre + q0 - window + 1) : 0;
+  lo = lo / ft::BK * ft::BK;
+  const int ntiles = hi > lo ? (hi - lo + ft::BK - 1) / ft::BK : 0;
+  const teola::DenseKeys keys{T};
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<size_t>(smem_raw) + 1023) & ~(size_t)1023);
+  unsigned char* ring = qs + NQ * ft::q_bytes<HD>();
+  // stage st: the K tile at ring + st*SB, the V tile after it
+  if (ntiles > 0) {
+    ft::load_tile<HD>(ring, k, keys, b, kvh, K, lo, hi, tid);
+    teola::cp_async_commit();
+    ft::load_tile<HD>(ring + TB, v, keys, b, kvh, K, lo, hi, tid);
+    teola::cp_async_commit();
+  }
+
+  // CTA row r is position r / GC of the tile and head hc*GC + r % GC of
+  // the group; returns the element offset of its q / o row, or -1
+  auto row_off = [&](int r) -> long long {
+    const int p = r / GC, g = hc * GC + r % GC;
+    if (p >= npos || g >= G) return -1;
+    return (((long long)b * Sq + q0 + p) * H + kvh * G + g) * HD;
+  };
+  // Q's pieces, four lanes per row, while the first tile's copies fly
+#pragma unroll
+  for (int pass = 0; pass < ft::ROWS / (ft::NT / 4); ++pass) {
+    const int r = pass * (ft::NT / 4) + (tid >> 2);
+    const long long off = row_off(r);
+    ft::store_q<HD, NQ>(qs, r, off >= 0 ? q + off : nullptr, tid & 3);
+  }
+  // this thread's accumulator rows r0, r1 (16*warp + lane/4 + 8r)
+  int qpos[2];
+  TQ* orow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * warp + (lane >> 2) + 8 * r;
+    const long long off = row_off(row);
+    qpos[r] = off >= 0 ? pre + q0 + row / GC : -1;  // -1: sees no key
+    orow[r] = off >= 0 ? o + off : nullptr;
+  }
+  // a warpgroup whose first row is past the tile's positions has no row
+  const int wg = warp >> 2;
+  const bool live = (64 * wg) / GC < npos;
+  const uint32_t qa = ft::smem_addr(qs) + wg * 64 * 128;
+
+  float acc[HD / 2], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int j0 = lo + t * ft::BK;
+    unsigned char* kt = ring + (t & 1) * SB;
+    if (t + 1 < ntiles) {  // the next tile into the other stage
+      unsigned char* nk = ring + ((t + 1) & 1) * SB;
+      ft::load_tile<HD>(nk, k, keys, b, kvh, K, j0 + ft::BK, hi, tid);
+      teola::cp_async_commit();
+      ft::load_tile<HD>(nk + TB, v, keys, b, kvh, K, j0 + ft::BK, hi, tid);
+    } else {
+      teola::cp_async_commit();  // empty groups keep the count uniform
+    }
+    teola::cp_async_commit();
+    teola::cp_async_wait<3>();  // this tile's K
+    ft::fence_async_smem();
+    __syncthreads();
+    float s[32];
+    uint32_t pa[ft::NP][4][4];
+    if (live) {
+      ft::qk_tile<HD, NQ>(s, qa, ft::smem_addr(kt));
+      ft::softmax_tile<HD>(s, acc, m, l, qpos, j0, lim, window, scale, cap,
+                           lane);
+      ft::p_frags(s, pa);
+    }
+    teola::cp_async_wait<2>();  // this tile's V
+    ft::fence_async_smem();
+    __syncthreads();
+    if (live) ft::pv_tile<HD>(acc, pa, ft::smem_addr(kt + TB));
+    __syncthreads();  // the stage is free for tile t + 2
+  }
+  ft::finish_rows<HD>(acc, l, orow, lane);
+}
+
+// ---------------------------------------------------------------------------
+// fp32 K/V only: the first port's CUDA-core body (see the header).
+namespace fp32kv {
 
 constexpr int BQ = 32;   // query rows per CTA
 constexpr int BK = 64;   // keys per KV tile
@@ -41,7 +171,7 @@ constexpr size_t smem_bytes() {
 
 template <int HD, typename TQ, typename TKV>
 __global__ void __launch_bounds__(NT)
-flash_prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
+flash_prefill_fp32kv_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                      const TKV* __restrict__ v, TQ* __restrict__ o,
                      const int* __restrict__ prefix,
                      const int* __restrict__ total, int Sq, int H, int K,
@@ -151,24 +281,46 @@ flash_prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     const float den = fmaxf(l, 1e-30f);
     TQ* out = o + ((size_t)(b * Sq + q0 + r) * H + h) * HD;
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) out[c + 4 * i] = teola::from_f<TQ>(acc[i] / den);
+    for (int i = 0; i < DPT; ++i)
+      out[c + 4 * i] = teola::from_f<TQ>(acc[i] / den);
   }
 }
+
+}  // namespace fp32kv
 
 template <int HD, typename TQ, typename TKV>
 int launch(const void* q, const void* k, const void* v, void* o,
            const int* prefix, const int* total, int B, int Sq, int H, int K,
            int T, float scale, int window, float cap, cudaStream_t stream) {
-  auto kern = flash_prefill_kernel<HD, TQ, TKV>;
-  const size_t smem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), static_cast<TQ*>(o), prefix, total, Sq, H,
-      K, T, scale, window, cap);
+  if constexpr (std::is_same<TKV, float>::value) {
+    auto kern = fp32kv::flash_prefill_fp32kv_kernel<HD, TQ, TKV>;
+    constexpr size_t smem = fp32kv::smem_bytes<HD>();
+    // once per instantiation, outside any CUDA-graph capture
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (attr != cudaSuccess) return (int)attr;
+    dim3 grid((Sq + fp32kv::BQ - 1) / fp32kv::BQ, H, B);
+    kern<<<grid, fp32kv::NT, smem, stream>>>(
+        static_cast<const TQ*>(q), static_cast<const TKV*>(k),
+        static_cast<const TKV*>(v), static_cast<TQ*>(o), prefix, total, Sq,
+        H, K, T, scale, window, cap);
+  } else {
+    if ((reinterpret_cast<size_t>(k) | reinterpret_cast<size_t>(v)) & 15)
+      return (int)cudaErrorMisalignedAddress;
+    const int G = H / K, GC = G < ft::ROWS ? G : ft::ROWS;
+    const int NHC = (G + GC - 1) / GC, BQ = ft::ROWS / GC;
+    auto kern = flash_prefill_kernel<HD, TQ>;
+    constexpr size_t smem =
+        ft::smem_bytes<HD, std::is_same<TQ, float>::value ? ft::NP : 1>();
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (attr != cudaSuccess) return (int)attr;
+    dim3 grid((Sq + BQ - 1) / BQ, K * NHC, B);
+    kern<<<grid, ft::NT, smem, stream>>>(
+        static_cast<const TQ*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<TQ*>(o), prefix,
+        total, Sq, H, K, T, GC, NHC, scale, window, cap);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,440 @@
+// Tile core of the port's tensor-core flash attention, for Hopper (sm_90a):
+// the pieces a kernel is made of that walks 64-key K/V tiles for 128 packed
+// query rows. K1 flash_prefill (flash_prefill.cu) uses it over the dense
+// cache (DenseKeys); K5's paged chunked prefill can use it over the block
+// table (PagedKeys) without change.
+//
+// Rows. A CTA holds ROWS = 128 query rows, two warpgroups of 64, warp w
+// rows 16w..16w+15. Each thread holds two of its warp's rows, r0 = lane/4
+// and r1 = r0 + 8, in wgmma's m64nN accumulator layout: element 4*nb + e
+// of an accumulator is row r0 (e < 2) or r1 (e >= 2), column 8*nb +
+// 2*(lane%4) + e%2.
+//
+// Shared memory, all in wgmma's 128-byte-swizzle layout (hd/64 column
+// blocks of R rows x 128 B, 16-byte chunk i of row c at chunk (i ^ c) % 8
+// of its row; 1024-byte aligned): Q's pieces (R = 128, written once), then
+// a ring of STAGES stages, each a K tile and a V tile (R = 64 keys). K and
+// V arrive by 16-byte cp.async in their storage type (bf16); keys at or
+// past the caller's limit are zero-filled, never read.
+//
+// Products, both on the tensor cores (wgmma.mma_async m64nNk16, bf16
+// operands, fp32 accumulation):
+//   S = Q K^T with A (Q) and B (K) from shared memory, both K-major;
+//   O += P V with A (P) in registers, converted from the fp32 softmax
+//     (FlashAttention-3's register reuse), and B (V) from shared memory,
+//     MN-major (wgmma transposes 16-bit B).
+// Split precision: an fp32 operand (Q, P) is the sum of NP = 3 bf16
+// pieces, x = x0 + x1 + x2 with x_i = bf16(x - x_0 - ... - x_{i-1}); each
+// remainder is exact in fp32, and the pieces carry 24 significand bits,
+// fp32's own. One MMA per piece goes into the same fp32 accumulator, the
+// smallest piece first. K and V are bf16 already, so exact operands; a
+// bf16 q is its own single piece. Measured on the H100 against a float64
+// evaluation, this is as close as the fp32 reference computed on the card
+// at unit-scale inputs, and 2.5-3.7x closer at q, k ~ 3 N(0,1), where fp32
+// scores near 40 carry 4e-6 of rounding; one piece is not
+// (tests/test_torch_kernels.py).
+//
+// Softmax (softmax_tile): the reference's fp32 online softmax. A key is
+// visible to a row at position qpos when j < lim, j <= qpos and (window >
+// 0) j > qpos - window; its score is scale * s, then cap * tanh(s / cap)
+// when cap > 0; invisible keys score NEG_INF, and p = exp(s - m_new) for
+// every key as in the reference (a row that has seen no key yet counts
+// its masked keys until a visible key's alpha = 0 clears them). Row maxima
+// are reduced over the quad of lanes that share a row; each lane keeps a
+// partial denominator, summed over the quad at the end (finish_rows).
+#pragma once
+
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace teola {
+namespace ft {
+
+constexpr int BK = 64;      // keys per K/V tile
+constexpr int ROWS = 128;   // query rows per CTA: two warpgroups of 64
+constexpr int NT = 256;     // threads per CTA: 8 warps of 16 rows
+constexpr int STAGES = 2;   // K/V tiles in flight (a ring)
+constexpr int NP = 3;       // bf16 pieces of an fp32 operand
+
+// bytes of one K or V tile, of one Q piece, and of one stage (K, V)
+template <int HD>
+__host__ __device__ constexpr int tile_bytes() {
+  return BK * HD * 2;
+}
+template <int HD>
+__host__ __device__ constexpr int q_bytes() {
+  return ROWS * HD * 2;
+}
+template <int HD>
+__host__ __device__ constexpr int stage_bytes() {
+  return 2 * tile_bytes<HD>();
+}
+// dynamic shared memory of a kernel with NQ pieces of Q, plus slack to
+// align it to 1024 bytes
+template <int HD, int NQ>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return 1024 + (size_t)NQ * q_bytes<HD>() + STAGES * stage_bytes<HD>();
+}
+
+// Byte offset of 16-byte chunk i (dims 8i..8i+7) of row c in a buffer of
+// R rows.
+template <int R>
+__device__ __forceinline__ uint32_t swz(int c, int i) {
+  return (uint32_t)((i >> 3) * (R * 128) + c * 128 +
+                    (((i & 7) ^ (c & 7)) << 4));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async the hd-wide bf16 rows of keys [j0, j0 + BK) of (b, kvh) from
+// src (a K or V cache addressed by keys) into the tile at dst; rows of
+// keys j >= hi are zero-filled.
+template <int HD, typename Keys>
+__device__ __forceinline__ void load_tile(unsigned char* dst,
+                                          const __nv_bfloat16* src,
+                                          const Keys& keys, int b, int kvh,
+                                          int K, int j0, int hi, int tid) {
+  constexpr int CPR = HD / 8;  // 16-byte chunks per key row
+#pragma unroll
+  for (int u = 0; u < BK * CPR / NT; ++u) {
+    const int idx = tid + u * NT, c = idx / CPR, i = idx % CPR;
+    const bool ok = j0 + c < hi;
+    const __nv_bfloat16* g =
+        ok ? src + keys.row(b, j0 + c, kvh, K) * HD + i * 8 : src;
+    cp_async16(dst + swz<BK>(c, i), g, ok);
+  }
+}
+
+// 8 consecutive values as floats, and back as 8 bf16 in 16 bytes
+__device__ __forceinline__ void ld8(const float* p, float (&x)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  x[0] = a.x;
+  x[1] = a.y;
+  x[2] = a.z;
+  x[3] = a.w;
+  x[4] = b.x;
+  x[5] = b.y;
+  x[6] = b.z;
+  x[7] = b.w;
+}
+__device__ __forceinline__ void ld8(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    x[2 * e] = __uint_as_float(w[e] << 16);
+    x[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ void st8(unsigned char* p, const float (&x)[8]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(
+      pack2(x[0], x[1]), pack2(x[2], x[3]), pack2(x[4], x[5]),
+      pack2(x[6], x[7]));
+}
+
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Quarter qt of query row `row` (src: its hd values, null for a padding
+// row) into Q's NQ pieces at qs: three pieces of an fp32 row, a bf16 row
+// as it is.
+template <int HD, int NQ, typename TQ>
+__device__ __forceinline__ void store_q(unsigned char* qs, int row,
+                                        const TQ* src, int qt) {
+  constexpr int CH = HD / 32;  // 16-byte chunks per quarter row
+#pragma unroll
+  for (int u = 0; u < CH; ++u) {
+    float x[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = 0.f;
+    if (src) ld8(src + (qt * CH + u) * 8, x);
+    const uint32_t off = swz<ROWS>(row, qt * CH + u);
+#pragma unroll
+    for (int a = 0; a < NQ; ++a) {
+      float pc[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        pc[e] = __bfloat162float(__float2bfloat16(x[e]));
+        x[e] -= pc[e];
+      }
+      st8(qs + a * q_bytes<HD>() + off, pc);
+    }
+  }
+}
+
+// The NP free bf16 pieces of the pair (lo, hi), packed as A-fragment
+// registers (lo in the low half), largest piece first.
+__device__ __forceinline__ void split_pair(float lo, float hi,
+                                           uint32_t (&out)[NP]) {
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    out[i] = *reinterpret_cast<const uint32_t*>(&h);
+    const float2 f = __bfloat1622float2(h);
+    lo -= f.x;
+    hi -= f.y;
+  }
+}
+
+// P's A fragments for the 4 k-steps of a 64-key tile, from the fp32
+// probabilities in the accumulator s.
+__device__ __forceinline__ void p_frags(const float (&s)[32],
+                                        uint32_t (&pa)[NP][4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int reg = 0; reg < 4; ++reg) {  // n-block 2kk + reg/2, row reg%2
+      const int e = 8 * kk + 4 * (reg >> 1) + 2 * (reg & 1);
+      uint32_t pc[NP];
+      split_pair(s[e], s[e + 1], pc);
+#pragma unroll
+      for (int i = 0; i < NP; ++i) pa[i][kk][reg] = pc[i];
+    }
+  }
+}
+
+// One online-softmax step over a tile: s holds the raw dot products of the
+// thread's rows with keys j0.. (in, accumulator layout) and leaves as p;
+// m, l are the rows' running max and this lane's partial denominator;
+// the output accumulator o is rescaled by alpha.
+template <int HD>
+__device__ __forceinline__ void softmax_tile(float (&s)[32],
+                                             float (&o)[HD / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             const int (&qpos)[2], int j0,
+                                             int lim, int window, float scale,
+                                             float cap, int lane) {
+  const int c = j0 + 2 * (lane & 3);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = NEG_INF;
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int idx = 4 * nb + 2 * r + e, j = c + 8 * nb + e;
+        const bool vis = j < lim && j <= qpos[r] &&
+                         (window <= 0 || j > qpos[r] - window);
+        s[idx] = vis ? score(s[idx], scale, cap) : NEG_INF;
+        mx = fmaxf(mx, s[idx]);
+      }
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx);
+    const float alpha = expf(m[r] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int idx = 4 * nb + 2 * r + e;
+        s[idx] = expf(s[idx] - m_new);
+        sum += s[idx];
+      }
+    }
+    l[r] = alpha * l[r] + sum;
+    m[r] = m_new;
+#pragma unroll
+    for (int nb = 0; nb < HD / 8; ++nb) {
+      o[4 * nb + 2 * r] *= alpha;
+      o[4 * nb + 2 * r + 1] *= alpha;
+    }
+  }
+}
+
+// o / max(l, 1e-30) in TQ to the rows at row[0], row[1] (null: not
+// stored); l summed over the quad first.
+template <int HD, typename TQ>
+__device__ __forceinline__ void finish_rows(const float (&o)[HD / 2],
+                                            float (&l)[2],
+                                            TQ* const (&row)[2], int lane) {
+  const int c = 2 * (lane & 3);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float den = fmaxf(l[r], 1e-30f);
+    if (row[r] == nullptr) continue;
+#pragma unroll
+    for (int nb = 0; nb < HD / 8; ++nb)
+      st2(row[r] + 8 * nb + c, o[4 * nb + 2 * r] / den,
+          o[4 * nb + 2 * r + 1] / den);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The products as warpgroup MMAs (wgmma.mma_async, sm_90a).
+
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (in 16-byte units).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) |
+         ((uint64_t)sbo << 32) | (1ull << 62);
+}
+// K-major operand of R rows, k-step kk: 32*kk bytes into its 64-dim
+// column block; 8-row groups 1024 B apart
+template <int R>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t base, int kk) {
+  return gmma_desc(base + (kk >> 2) * (R * 128) + (kk & 3) * 32, 1, 64);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accesses of r across the async MMAs
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// shared-memory writes (generic proxy: st.shared, cp.async) made visible
+// to wgmma's operand reads (async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// D (m64 x n64, fp32) += A (m64 x k16) x B (k16 x n64), both bf16 in shared
+// memory through descriptors, both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t adesc,
+                                             uint64_t bdesc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(adesc), "l"(bdesc), "r"(1));
+}
+
+// D (m64 x n64, fp32) += A (m64 x k16, bf16, registers) x B (k16 x n64,
+// bf16, shared memory through bdesc, MN-major: wgmma's transpose flag 1).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t bdesc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc), "r"(1));
+}
+
+// D (m64 x n128, fp32) += A (m64 x k16, bf16, registers) x B (k16 x n128,
+// bf16, shared memory through bdesc, MN-major: wgmma's transpose flag 1).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                          const uint32_t (&a)[4],
+                                          uint64_t bdesc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc), "r"(1));
+}
+
+// S = Q K^T over one tile for one warpgroup: qa is its 64 rows of Q's NQ
+// pieces (piece stride q_bytes), kt the K tile; NQ x hd/16 m64n64k16.
+template <int HD, int NQ>
+__device__ __forceinline__ void qk_tile(float (&s)[32], uint32_t qa,
+                                        uint32_t kt) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  fence_regs(s);
+  wg_fence();
+#pragma unroll
+  for (int a = NQ - 1; a >= 0; --a)
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n64(s, kmajor_desc<ROWS>(qa + a * q_bytes<HD>(), kk),
+                   kmajor_desc<BK>(kt, kk));
+  wg_commit_wait();
+  fence_regs(s);
+}
+
+// O += P V over the tile at vt: NP pieces x 4 k-steps of m64n{hd}k16.
+// MN-major B: k-step kk starts at key row 16*kk (2048 B); 8-row groups
+// 1024 B apart, 64-dim column blocks 8192 B apart.
+template <int HD>
+__device__ __forceinline__ void pv_tile(float (&o)[HD / 2],
+                                        const uint32_t (&pa)[NP][4][4],
+                                        uint32_t vt) {
+  fence_regs(o);
+  wg_fence();
+#pragma unroll
+  for (int p = NP - 1; p >= 0; --p)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t d = gmma_desc(vt + kk * 2048, (BK * 128) >> 4, 64);
+      if constexpr (HD == 64)
+        wgmma_rs_n64(o, pa[p][kk], d);
+      else
+        wgmma_rs_n128(o, pa[p][kk], d);
+    }
+  wg_commit_wait();
+  fence_regs(o);
+}
+
+}  // namespace ft
+}  // namespace teola

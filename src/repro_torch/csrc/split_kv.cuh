@@ -1,14 +1,15 @@
 // Split-KV (flash-decoding) GQA attention for a few query rows per
 // sequence, for Hopper (sm_90a): the shared body of K2 (dense decode,
-// decode_attention.cu) and K3 (paged speculative verification,
-// paged_attention.cu). The two differ only in how key j of sequence b is
-// addressed (DenseKeys, PagedKeys below).
+// decode_attention.cu), K3 (paged speculative verification) and K4 (paged
+// decode, both paged_attention.cu). They differ only in how key j of
+// sequence b is addressed (DenseKeys, PagedKeys, PagedDecodeKeys in
+// common.cuh).
 //
 // Rows. A CTA holds the R = Sq * G query rows of one (kv head, sequence)
 // in the reference's GQA-grouped layout: row s*G + g is chunk position s
-// of head kvh*G + g, at absolute position length[b] - Sq + s. K2 is the
-// Sq = 1 case. Row r sees key j when j <= its position, j < span and
-// (window > 0) j > position - window; scores are scale * q.k, then
+// of head kvh*G + g, at absolute position length[b] - Sq + s. K2 and K4
+// are the Sq = 1 cases. Row r sees key j when j <= its position, j < span
+// and (window > 0) j > position - window; scores are scale * q.k, then
 // cap * tanh(s / cap) when cap > 0, exactly as in the reference.
 //
 // Split pass, grid (NS, K, B) with NS = ceil(span / CH): CTA s takes keys
@@ -63,29 +64,6 @@ constexpr int SKV_NT = 128;    // threads per CTA, both passes
 constexpr int SKV_MAXR = 64;   // query rows per CTA (Sq * G)
 constexpr int SKV_CB = 128;    // output elements per combine CTA
 constexpr int SKV_RB = 4096;   // floats of the partial-sum buffer
-
-// Dense cache (B, T, K, hd): key j of sequence b is row (b*T + j)*K + kvh.
-struct DenseKeys {
-  int T;
-  __device__ __forceinline__ int span() const { return T; }
-  __device__ __forceinline__ long long row(int b, int j, int kvh,
-                                           int K) const {
-    return ((long long)b * T + j) * K + kvh;
-  }
-};
-
-// Paged pool (nb, bs, K, hd) read through tables (B, maxblk): key j of
-// sequence b is row (table[b, j / bs]*bs + j % bs)*K + kvh.
-struct PagedKeys {
-  const int* tables;
-  int bs, maxblk;
-  __device__ __forceinline__ int span() const { return maxblk * bs; }
-  __device__ __forceinline__ long long row(int b, int j, int kvh,
-                                           int K) const {
-    const int phys = tables[(size_t)b * maxblk + j / bs];
-    return ((long long)phys * bs + j % bs) * K + kvh;
-  }
-};
 
 // Keys [lo, hi) that some row of a sequence of total length len may see:
 // rows sit at len - Sq .. len - 1.

@@ -69,15 +69,18 @@ def _start(name: str):
 
 
 def _finish(name: str, path: Path, pending):
+    report = path.with_suffix(".ptxas.txt")  # nvcc's -Xptxas -v output
     if pending is None:
-        build_log.setdefault(name, {"seconds": 0.0, "ptxas": "(cached)",
-                                    "path": str(path)})
+        build_log.setdefault(name, {
+            "seconds": 0.0, "path": str(path),
+            "ptxas": report.read_text() if report.exists() else "(cached)"})
         return
     proc, tmp, t0 = pending
     out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{out}")
+    report.write_text(out)
     os.replace(tmp, path)
     build_log[name] = {"seconds": time.time() - t0, "ptxas": out,
                        "path": str(path)}

@@ -9,12 +9,13 @@ paged_decode_attention`` (``_paged_kernel``) and ``::verify_attention``
 bounds each on the H100 (memory: about Sq*G flops per byte of K/V; at
 serve sizes, latency) and what its design does about that. Both read K/V
 rows through the block table straight from the ``(nb, bs, K, hd)`` pool,
-so the pool is never transposed, copied or gathered. K3 is the split-KV
+so the pool is never transposed, copied or gathered. Both are the split-KV
 (flash-decoding) kernel of ``csrc/split_kv.cuh`` that K2 also uses: a
 split pass over chunks of 64 keys and a combine pass, from one C call,
 with a per-call workspace (its plain mirror for the tests:
-``decode_attention.split_kv_plain`` over the gathered view). K4 keeps one
-CTA per (kv head, sequence).
+``decode_attention.split_kv_plain`` over the gathered view). K4 is its
+``Sq = 1`` case, under an addressing type of its own so that its launches
+and kernel names stay apart from K3's.
 
 ``paged_decode_attention`` and ``verify_attention`` launch the kernels for
 CUDA tensors and run their plain PyTorch versions — a gather of the
@@ -40,9 +41,10 @@ MAX_ROWS = 64        # Sq * G rows the verify kernel holds
 
 _count_lock = threading.Lock()
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# q, k_pool, v_pool, o, tables, length, B, H, K, bs, maxblk, hd, q_dtype,
-# kv_dtype, scale, window, cap, stream
-_DECODE_ARGTYPES = [_P] * 6 + [_I] * 8 + [_F, _I, _F, _P]
+# q, k_pool, v_pool, o, tables, length, ws, ws_floats, B, H, K, bs,
+# maxblk, hd, q_dtype, kv_dtype, scale, window, cap, stream
+_DECODE_ARGTYPES = ([_P] * 7 + [ctypes.c_longlong] + [_I] * 8
+                    + [_F, _I, _F, _P])
 # q, k_pool, v_pool, o, tables, length, ws, ws_floats, B, Sq, H, K, bs,
 # maxblk, hd, q_dtype, kv_dtype, scale, window, cap, stream
 _VERIFY_ARGTYPES = ([_P] * 7 + [ctypes.c_longlong] + [_I] * 9
@@ -150,12 +152,14 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, length, *,
     length = per_seq(length, B, q.device)
     q = q.contiguous()
     out = torch.empty_like(q)
+    K, bs = k_pool.shape[2], k_pool.shape[1]
+    ws = split_workspace(B, K, tables.shape[1] * bs, H // K, hd, q.device)
     launch = build.load("paged_attention", "paged_decode_launch",
                         _DECODE_ARGTYPES)
     err = launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
-        tables.data_ptr(), length.data_ptr(), B, H, k_pool.shape[2],
-        k_pool.shape[1], tables.shape[1], hd, build.dtype_code(q),
+        tables.data_ptr(), length.data_ptr(), ws.data_ptr(), ws.numel(), B,
+        H, K, bs, tables.shape[1], hd, build.dtype_code(q),
         build.dtype_code(k_pool), float(scale), int(window or 0),
         float(cap or 0.0), torch.cuda.current_stream(q.device).cuda_stream)
     build.check("paged_attention", err, "paged_decode_attention")

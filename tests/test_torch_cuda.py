@@ -388,3 +388,189 @@ def test_split_verify_from_two_host_threads(cuda):
         assert len(got) == 200
         for o in got:
             torch.testing.assert_close(o, want, rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# K4 paged decode on the split-KV template
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("bs,maxblk", [(16, 32), (8, 25)])
+@pytest.mark.parametrize("window,cap", [(None, None), (100, 50.0)])
+def test_paged_decode_at_chunk_edges(cuda, qdt, hd, bs, maxblk, window, cap):
+    """K4 with G = 16 (its largest group) at lengths on and beside the
+    64-key split edges, over 512 keys and a ragged 200, on a shuffled pool
+    whose rows 0 and 1 share their first two blocks."""
+    span = bs * maxblk
+    lengths = [min(n, span) for n in EDGE_LENGTHS]
+    B, K = len(lengths), 2
+    q, kp, vp, t = _verify_inputs(np.random.RandomState(30), B, 1, 16 * K,
+                                  K, hd, bs, maxblk, cuda, qdt)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    _launch_and_compare(tpa.paged_decode_attention,
+                        tpa.paged_decode_attention_plain,
+                        (q[:, 0], kp, vp, t, ln),
+                        dict(window=window, cap=cap),
+                        2e-5 if qdt == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+def test_paged_decode_reads_no_out_of_table_key(cuda, qdt):
+    """Table entries past each row's length point at the pad block, which
+    is poisoned with NaN (as are the unused blocks): K4 reads only the
+    rows of visible keys, so its result is finite and equals the plain
+    version on the unpoisoned pool."""
+    rs = np.random.RandomState(31)
+    B, H, K, hd, bs, maxblk = 4, 32, 4, 64, 16, 32
+    q, kp, vp, t = _verify_inputs(rs, B, 1, H, K, hd, bs, maxblk, cuda, qdt)
+    lengths = [1, 63, 130, 300]
+    t = t.clone()
+    for b, n in enumerate(lengths):
+        t[b, -(-n // bs):] = kvc.PAD_BLOCK
+    used = torch.zeros(kp.shape[0], dtype=torch.bool, device=cuda)
+    for b, n in enumerate(lengths):
+        used[t[b, :-(-n // bs)].long()] = True
+    kp_bad, vp_bad = kp.clone(), vp.clone()
+    kp_bad[~used] = float("nan")
+    vp_bad[~used] = float("nan")
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    o = tpa.paged_decode_attention(q[:, 0], kp_bad, vp_bad, t, ln)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all()
+    tol = 2e-5 if qdt == torch.float32 else 2e-2
+    torch.testing.assert_close(
+        o.float(), tpa.paged_decode_attention_plain(q[:, 0], kp, vp, t,
+                                                    ln).float(),
+        rtol=tol, atol=tol)
+
+
+def test_paged_decode_in_a_cuda_graph(cuda):
+    """K4 captured in a CUDA graph, then replayed after its length tensor
+    is rewritten in place: each replay equals an eager call bit for bit
+    and the plain version within 2e-5."""
+    q, kp, vp, t = _verify_inputs(np.random.RandomState(32), 4, 1, 32, 4,
+                                  64, 16, 32, cuda, torch.float32)
+    q = q[:, 0].contiguous()
+    ln = torch.tensor([1, 130, 300, 512], dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # build, attributes, allocator
+        tpa.paged_decode_attention(q, kp, vp, t, ln)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tpa.paged_decode_attention(q, kp, vp, t, ln)
+    for new in ([64, 65, 511, 2], [512, 1, 129, 63]):
+        ln.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, tpa.paged_decode_attention(q, kp, vp, t, ln))
+        torch.testing.assert_close(
+            out, tpa.paged_decode_attention_plain(q, kp, vp, t, ln),
+            rtol=2e-5, atol=2e-5)
+
+
+def test_paged_decode_from_two_host_threads(cuda):
+    """Two host threads call K4 200 times each on different inputs onto
+    one stream; every result equals its plain version."""
+    import threading
+    cases = []
+    for seed, lengths in ((33, [4, 200, 377, 512]), (34, [512, 64, 9, 300])):
+        q, kp, vp, t = _verify_inputs(np.random.RandomState(seed), 4, 1, 32,
+                                      4, 64, 16, 32, cuda, torch.float32)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+        cases.append((q[:, 0].contiguous(), kp, vp, t, ln))
+    wants = [tpa.paged_decode_attention_plain(*c) for c in cases]
+    outs = [[], []]
+
+    def work(i):
+        for _ in range(200):
+            outs[i].append(tpa.paged_decode_attention(*cases[i]))
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    for want, got in zip(wants, outs):
+        assert len(got) == 200
+        for o in got:
+            torch.testing.assert_close(o, want, rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# K1 flash_prefill on the tensor cores
+
+def _prefill_inputs(rs, B, Sq, G, K, hd, T, dev, qdt, kvdt=torch.bfloat16,
+                    qk_scale=1.0):
+    q = _randn(rs, (B, Sq, G * K, hd), dev, qdt) * qk_scale
+    k = _randn(rs, (B, T, K, hd), dev, kvdt) * qk_scale
+    v = _randn(rs, (B, T, K, hd), dev, kvdt)
+    return q.to(qdt), k.to(kvdt), v
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_flash_prefill_tc_matches_plain(cuda, qdt, hd, G):
+    """K1 at every group size the GQA packing takes (128 / G positions per
+    CTA) and ragged chunks (Sq 1, 17, 64, 200, 256) at per-sequence
+    prefixes, over a 512-slot cache, against its plain version."""
+    rs = np.random.RandomState(40 + G + hd)
+    for Sq in (1, 17, 64, 200, 256):
+        q, k, v = _prefill_inputs(rs, 3, Sq, G, 2, hd, 512, cuda, qdt)
+        prefix = torch.tensor([0, 41, 512 - Sq - 3], dtype=torch.int32,
+                              device=cuda)
+        _launch_and_compare(tfp.flash_prefill, tfp.flash_prefill_plain,
+                            (q, k, v), dict(prefix_len=prefix),
+                            2e-5 if qdt == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_prefill_tc_window_softcap(cuda, qdt, hd):
+    """A window that empties the long rows' leading tiles, and a softcap,
+    at G = 8 and a ragged Sq."""
+    q, k, v = _prefill_inputs(np.random.RandomState(50 + hd), 3, 150, 8, 2,
+                              hd, 512, cuda, qdt)
+    prefix = torch.tensor([0, 77, 300], dtype=torch.int32, device=cuda)
+    _launch_and_compare(tfp.flash_prefill, tfp.flash_prefill_plain,
+                        (q, k, v), dict(prefix_len=prefix, window=100,
+                                        cap=50.0),
+                        2e-5 if qdt == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_prefill_fp32_kv(cuda, qdt, hd):
+    """fp32 K/V (dispatched, stored by no engine) take the CUDA-core body
+    and meet the same tolerances."""
+    q, k, v = _prefill_inputs(np.random.RandomState(60 + hd), 3, 96, 4, 2,
+                              hd, 256, cuda, qdt, kvdt=torch.float32)
+    prefix = torch.tensor([0, 41, 160], dtype=torch.int32, device=cuda)
+    _launch_and_compare(tfp.flash_prefill, tfp.flash_prefill_plain,
+                        (q, k, v), dict(prefix_len=prefix),
+                        2e-5 if qdt == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_prefill_tc_at_three_times_scale(cuda, hd):
+    """q, k ~ 3 N(0, 1): scores reach ~40, where fp32 rounding alone moves
+    a probability by ~4e-6, and the fp32 plain version computed on the
+    card is itself 1.5-2.8e-5 from float64 (measured on the H100). So the
+    kernel is held to 2e-5 of the plain version evaluated in float64, and
+    must be closer to it than the fp32 plain version is."""
+    q, k, v = _prefill_inputs(np.random.RandomState(70 + hd), 4, 256, 8, 4,
+                              hd, 512, cuda, torch.float32, qk_scale=3.0)
+    kw = dict(prefix_len=torch.tensor([0, 37, 100, 200], dtype=torch.int32,
+                                      device=cuda))
+    n0 = tfp.flash_prefill.launches
+    o = tfp.flash_prefill(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tfp.flash_prefill.launches == n0 + 1
+    truth = tfp.flash_prefill_plain(q.double(), k.double(), v.double(), **kw)
+    err = (o.double() - truth).abs().max().item()
+    err32 = (tfp.flash_prefill_plain(q, k, v, **kw).double()
+             - truth).abs().max().item()
+    assert err <= 2e-5 and err < err32, (err, err32)

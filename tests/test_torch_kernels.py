@@ -1,8 +1,10 @@
 """The port's attention kernels (K1 flash_prefill, K2 decode_attention):
 their plain PyTorch versions against the reference's pure-jnp oracles and
 its Pallas kernels in interpret mode, on the same numpy-seeded inputs, at
-the tolerances of tests/test_kernels.py. (The hand-written CUDA kernels
-against these plain versions: tests/test_torch_cuda.py.)"""
+the tolerances of tests/test_kernels.py; and K1's tensor-core arithmetic
+(``flash_prefill_split_plain``: bf16 pieces of q and P) against the same
+oracles and against float64. (The hand-written CUDA kernels against these
+plain versions: tests/test_torch_cuda.py.)"""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -164,3 +166,83 @@ def test_wrappers_refuse_other_devices():
         tfp.flash_prefill(q, k, k)
     with pytest.raises(ValueError):
         tdec.decode_attention(q[:, 0], k, k, torch.tensor([5]))
+
+
+# ---------------------------------------------------------------------------
+# K1's tensor-core arithmetic: q and P in three bf16 pieces
+
+def _split_inputs(seed, B, Sq, H, K, hd, T, dtype, qk_scale=1.0):
+    """q, k ~ qk_scale * N(0, 1), v ~ N(0, 1), K/V rounded to bf16 values
+    (the engines' cache dtype: exact tensor-core operands), as (jax
+    arrays, torch tensors) holding the same values."""
+    rs = np.random.RandomState(seed)
+    q, k, v = [rs.standard_normal(s).astype(np.float32) * c for s, c in (
+        ((B, Sq, H, hd), qk_scale), ((B, T, K, hd), qk_scale),
+        ((B, T, K, hd), 1.0))]
+    k, v = [torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+            for x in (k, v)]
+    xs = (q, k, v)
+    return ([jnp.asarray(x, JDT[dtype]) for x in xs],
+            [torch.from_numpy(x).to(TDT[dtype]) for x in xs])
+
+
+@pytest.mark.parametrize("B,Sq,H,K,hd,T,prefix", [
+    (1, 128, 4, 4, 64, 128, 0),        # plain causal (MHA)
+    (2, 128, 4, 2, 64, 256, 64),       # GQA + prefix (partial prefill)
+    (1, 256, 8, 1, 128, 512, 128),     # MQA, bigger head dim
+    (2, 64, 4, 2, 64, 256, 192),       # chunk smaller than block
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_split_plain_matches_reference(B, Sq, H, K, hd, T, prefix,
+                                             dtype):
+    (q, k, v), (tq, tk, tv) = _split_inputs(10, B, Sq, H, K, hd, T, dtype)
+    o_ref = ref.flash_prefill_ref(q, k, v, prefix_len=prefix)
+    o_pallas = ops.flash_prefill(q, k, v, prefix_len=prefix, bq=64, bk=64,
+                                 interpret=True)
+    o = tfp.flash_prefill_split_plain(tq, tk, tv, prefix_len=prefix)
+    assert o.dtype == TDT[dtype] and o.shape == (B, Sq, H, hd)
+    np.testing.assert_allclose(_np(o), _np(o_ref), **TOL[dtype])
+    np.testing.assert_allclose(_np(o), _np(o_pallas), **TOL[dtype])
+
+
+@pytest.mark.parametrize("window,cap", [(64, None), (None, 30.0),
+                                        (100, 50.0)])
+def test_flash_split_plain_window_softcap(window, cap):
+    B, Sq, H, K, hd, T, prefix = 2, 128, 4, 2, 64, 256, 96
+    (q, k, v), (tq, tk, tv) = _split_inputs(11, B, Sq, H, K, hd, T,
+                                            "float32")
+    kw = dict(prefix_len=prefix, window=window, cap=cap)
+    o_ref = ref.flash_prefill_ref(q, k, v, **kw)
+    o_pallas = ops.flash_prefill(q, k, v, bq=64, bk=64, interpret=True, **kw)
+    o = tfp.flash_prefill_split_plain(tq, tk, tv, **kw)
+    np.testing.assert_allclose(_np(o), _np(o_ref), **TOL["float32"])
+    np.testing.assert_allclose(_np(o), _np(o_pallas), **TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 64])
+def test_flash_split_plain_ragged_per_sequence_prefix(dtype, window):
+    """A ragged chunk (Sq = 100, not a multiple of the 64-key tile) at
+    per-sequence prefixes 0 / 37 / 150; with window 64 the long rows'
+    leading tiles hold no visible key. Against the plain version."""
+    _, (tq, tk, tv) = _split_inputs(12, 3, 100, 8, 2, 64, 256, dtype)
+    kw = dict(prefix_len=torch.tensor([0, 37, 150], dtype=torch.int32),
+              window=window)
+    o = tfp.flash_prefill_split_plain(tq, tk, tv, **kw)
+    np.testing.assert_allclose(_np(o), _np(tfp.flash_prefill_plain(
+        tq, tk, tv, **kw)), **TOL[dtype])
+
+
+@pytest.mark.parametrize("pieces", [1, 2, 3])
+def test_flash_split_pieces_needed_at_scale(pieces):
+    """Why q and P go in three bf16 pieces: at q, k ~ 3 N(0, 1) (hd 128,
+    scores up to ~40) against float64, three pieces meet fp32's 2e-5 and
+    one or two do not (one misses by three orders of magnitude)."""
+    _, (tq, tk, tv) = _split_inputs(13, 1, 256, 8, 1, 128, 512, "float32",
+                                    qk_scale=3.0)
+    o = tfp.flash_prefill_split_plain(tq, tk, tv, prefix_len=128,
+                                      pieces=pieces)
+    truth = tfp.flash_prefill_plain(tq.double(), tk.double(), tv.double(),
+                                    prefix_len=128)
+    err = (o.double() - truth).abs().max().item()
+    assert (err <= 2e-5) == (pieces == 3), err

@@ -1,5 +1,6 @@
 """The split-KV (flash-decoding) algorithm of the port's K2
-decode_attention and K3 verify_attention kernels (csrc/split_kv.cuh),
+decode_attention, K3 verify_attention and K4 paged_decode_attention
+kernels (csrc/split_kv.cuh),
 mirrored in plain PyTorch (``split_kv_plain``: the same chunk of keys,
 the same rule for which chunks are live, the same (m, l, acc) merge),
 against the reference's pure-jnp oracles and its Pallas kernels in
@@ -190,3 +191,59 @@ def test_verify_split_shared_prefix_table(dtype):
         tables=tuple(map(tuple, t)))
     o = _verify_split(tq, tk, tv, ttables, tlength, chunk=16)
     _check(o, wants, dtype)
+
+
+# ---------------------------------------------------------------------------
+# K4 paged_decode_attention: the paged Sq = 1 instance
+
+@functools.lru_cache(maxsize=None)
+def _paged_decode_case(B, H, K, hd, nb, bs, maxblk, dtype, lengths, window,
+                       cap):
+    (q, kp, vp), tin = _inputs(14, [(B, H, hd), (nb, bs, K, hd),
+                                    (nb, bs, K, hd)], dtype)
+    tables, ttables = _ints(_perm_tables(15, B, maxblk, nb))
+    length, tlength = _ints(lengths)
+    kw = dict(window=window, cap=cap)
+    wants = (ref.paged_decode_attention_ref(q, kp, vp, tables, length, **kw),
+             ops.paged_decode_attention(q, kp, vp, tables, length,
+                                        interpret=True, **kw))
+    return tin, ttables, tlength, wants
+
+
+@pytest.mark.parametrize("B,H,K,hd,nb,bs,maxblk", [
+    (2, 4, 2, 64, 16, 16, 8),          # GQA
+    (1, 8, 8, 128, 8, 32, 4),          # MHA, bigger head dim
+    (3, 4, 1, 64, 40, 8, 12),          # MQA, small blocks
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [16, 64, "T"])
+def test_paged_decode_split_matches_reference(B, H, K, hd, nb, bs, maxblk,
+                                              dtype, chunk):
+    """K4's split algorithm (one query row per head: length - 1 is the new
+    token's position) over the gathered view, on shuffled physical blocks,
+    at tests/test_kernels.py's paged-decode shapes."""
+    lengths = tuple(int(n) for n in
+                    np.arange(1, B + 1) * (maxblk * bs // (B + 1)) + 1)
+    (tq, tk, tv), ttables, tlength, wants = _paged_decode_case(
+        B, H, K, hd, nb, bs, maxblk, dtype, lengths, None, None)
+    o = _verify_split(tq[:, None], tk, tv, ttables, tlength,
+                      chunk=maxblk * bs if chunk == "T" else chunk)[:, 0]
+    assert o.dtype == TDT[dtype] and o.shape == (B, H, hd)
+    _check(o, wants, dtype)
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+@pytest.mark.parametrize("window,cap", [(None, None), (40, None),
+                                        (None, 30.0), (100, 50.0)])
+def test_paged_decode_split_lengths_at_chunk_edges(chunk, window, cap):
+    """Length 1, lengths on and beside the 16- and 64-key edges and the
+    full 192-key span, over 16-key blocks in shuffled order; window 40
+    leaves the leading chunks of the long rows with no visible key."""
+    lengths = (1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 192)
+    B, maxblk = len(lengths), 12
+    (tq, tk, tv), ttables, tlength, wants = _paged_decode_case(
+        B, 8, 2, 64, B * maxblk + 1, 16, maxblk, "float32", lengths, window,
+        cap)
+    o = _verify_split(tq[:, None], tk, tv, ttables, tlength, window=window,
+                      cap=cap, chunk=chunk)[:, 0]
+    _check(o, wants, "float32")
