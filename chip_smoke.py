@@ -2,12 +2,13 @@
 """Smoke run of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --timing [--src DIR]
 
 Phases, in order; any failure exits non-zero:
   1. toolchain: the card (nvidia-smi), torch / CUDA versions, nvcc, triton.
   2. build: nvcc compiles every kernel source, all at once; per kernel,
      registers and spills from ptxas; the tensor-core instructions in
-     K1's SASS (cuobjdump).
+     the SASS of K1 and K5, which share the tile kernel (cuobjdump).
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the card, at the main paths' shapes (TinyLlama-1.1B heads; the paged
      kernels over a 129-block x 16 bf16 pool with shuffled physical blocks
@@ -29,7 +30,9 @@ Phases, in order; any failure exits non-zero:
      speculative decoding (k=3); 1 warm-up query, then 4 together.
   7. RWKV-6: the WKV scan kernel (K6) against its plain version at RWKV-6
      3B's heads (B=4, H=40, hd=64, S 512 / 128 / 1, plus hd=32) in fp32
-     and bf16, timed; RWKV-6 3B at full width cut to 2 layers, card
+     and bf16, timed, and a decode step timed over 32 states (one per
+     layer, more than the L2 holds) as the model walks them; RWKV-6 3B at
+     full width cut to 2 layers, card
      against CPU (prefill 100, 8 decode steps, a two-chunk prefill); then
      naive-RAG under Teola with the full 32-layer RWKV-6 3B as the core
      LLM on the dense path; 1 warm-up query, then 4 together.
@@ -37,7 +40,16 @@ Phases, in order; any failure exits non-zero:
 After each serve window one more query runs under torch.profiler: the
 card's busy share and, per hand-written kernel wrapper, the device time
 of everything it launched (K2, K3 and K4: a split and a combine pass)
-per call.
+per call (K6's split into decode steps and prefills by the length of each
+call); a wrapper that launched in that query and is charged no device time
+fails the run.
+
+--timing is not the smoke run: it runs only the timed phases (the kernels
+of phase 3 and 7, K6's decode step cold and warm, and the RWKV-6 serve
+path with its profiled query) and prints no result line. With --src DIR
+(accepted only with --timing) it takes repro_torch from DIR, so that two
+trees' kernels are timed by the same code in one chip call, e.g. a parent
+commit unpacked by ``git archive`` under build/.
 
 Before the last line it prints a JSON line of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -47,6 +59,7 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -57,8 +70,13 @@ import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+TIMING = "--timing" in sys.argv
+if "--src" in sys.argv and not TIMING:
+    sys.exit("chip_smoke: --src is accepted only with --timing")
+SRC = (os.path.abspath(sys.argv[sys.argv.index("--src") + 1])
+       if "--src" in sys.argv else
+       os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+sys.path.insert(0, SRC)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -89,9 +107,9 @@ from repro_torch.training.data import doc_corpus  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12                # dense bf16 tensor cores
-# K1 on the tensor cores: an fp32 q and fp32 probabilities in three bf16
-# pieces each, three bf16 products per fp32 one
-K1_PIECES = 3
+# K1 and K5 on the tensor cores (one tile kernel): an fp32 q and fp32
+# probabilities in three bf16 pieces each, three bf16 products per fp32 one
+TILE_PIECES = 3
 # kernel vs plain version, on the same inputs (fp32 accumulation in both;
 # bf16 outputs are compared at bf16 resolution)
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -138,12 +156,18 @@ def _device_rows(prof):
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 3):
-    """Device time of one call of ``fn`` in ms: every kernel, copy and fill
-    its calls launch, summed by torch.profiler over ``iters`` calls (after
-    ``warmup``) and divided by ``iters``. The profiler now and then returns
-    no device rows for a window; it is then asked again, up to ``tries``
-    windows. None where none of them saw device activity. The inputs stay
-    in the 50 MB L2 cache across the calls."""
+    """Device time of one call of ``fn`` in ms, from torch.profiler over
+    ``iters`` calls (after ``warmup``): for each kernel, copy and fill the
+    calls launch, its mean recorded duration times its launches per call
+    (its recorded count over ``iters``, rounded, at least 1), summed. Means,
+    because a window can lose some of its records: on one H100 the same
+    K6 call has read 0.2703 and 0.2079 ms of summed device time in two
+    runs, against 0.280 ms of CUDA-event time in both. The rounding takes
+    every function timed here to launch the same kernels on every call,
+    as the wrappers and the library calls do. A window with no device row
+    at all is asked again, up to ``tries`` windows; None where none saw
+    device activity. The inputs stay in the 50 MB L2 cache across the
+    calls."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -154,9 +178,9 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(t for _, t, _ in _device_rows(prof))
-        if us > 0:
-            return us / iters / 1e3
+        rows = [(t, n) for _, t, n in _device_rows(prof) if n > 0]
+        if sum(t for t, _ in rows) > 0:
+            return sum(t / n * max(1, round(n / iters)) for t, n in rows) / 1e3
     return None
 
 
@@ -228,11 +252,12 @@ def phase_build():
         for kern, regs, st, ld in ptxas_kernels(rec["ptxas"]):
             print(f"[build]   {kern}: {regs} registers per thread, spills "
                   f"{st} B stored / {ld} B loaded")
-    ops = sass_tensor_ops(log["flash_prefill"]["path"])
-    print(f"[build] flash_prefill SASS: {ops['HGMMA']} HGMMA, {ops['HMMA']} "
-          f"HMMA instructions")
-    if ops["HGMMA"] + ops["HMMA"] == 0:
-        raise AssertionError("flash_prefill runs no tensor-core instruction")
+    for name in ("flash_prefill", "chunk_prefill"):
+        ops = sass_tensor_ops(log[name]["path"])
+        print(f"[build] {name} SASS: {ops['HGMMA']} HGMMA, {ops['HMMA']} "
+              f"HMMA instructions")
+        if ops["HGMMA"] == 0:
+            raise AssertionError(f"{name} runs no wgmma instruction")
 
 
 # ---------------------------------------------------------------------------
@@ -378,12 +403,12 @@ def phase_kernels(dev) -> dict:
         lib, lib_dev = cuda_ms(sdpa), device_ms(sdpa)
         nbytes, flops = _prefill_work(q, kw["prefix_len"])
         bound, by = _bound(nbytes, flops)
-        tc_bound, tc_by = _bound(nbytes, K1_PIECES * flops, BF16_TC_FLOPS)
+        tc_bound, tc_by = _bound(nbytes, TILE_PIECES * flops, BF16_TC_FLOPS)
         print(f"[kernels] flash_prefill B={B} Sq={Sq} T={T} prefix={prefix}"
               f": kernel {ms:.4f} ms (device {_fmt(dev_ms)}), plain "
               f"{plain:.4f} ms, sdpa {lib:.4f} ms (device {_fmt(lib_dev)}), "
               f"bound {bound:.4f} ms ({by}, fp32 at 67 TFLOP/s), "
-              f"tensor-core bound {tc_bound:.4f} ms ({tc_by}, {K1_PIECES} "
+              f"tensor-core bound {tc_bound:.4f} ms ({tc_by}, {TILE_PIECES} "
               f"bf16 products per fp32 one at 989 TFLOP/s)")
         res["flash_prefill"].update(ms=ms, device_ms=dev_ms, plain_ms=plain,
                                     bound_ms=bound, bound_by=by,
@@ -529,15 +554,24 @@ def phase_paged_kernels(dev) -> dict:
         plain_ms = cuda_ms(lambda: plain(q, kp, vp, t, p))
         sdpa = _sdpa_paged(fn, q, kp, vp, t, p)
         lib, lib_dev = cuda_ms(sdpa), device_ms(sdpa)
-        bound, by = _bound(*_paged_work(fn, q, p))
+        nbytes, flops = _paged_work(fn, q, p)
+        bound, by = _bound(nbytes, flops)
+        extra, tc = "", {}
+        if fn is chunk_prefill_attention:     # K1's tile kernel
+            tc_bound, tc_by = _bound(nbytes, TILE_PIECES * flops,
+                                     BF16_TC_FLOPS)
+            extra = (f", tensor-core bound {tc_bound:.4f} ms ({tc_by}, "
+                     f"{TILE_PIECES} bf16 products per fp32 one at 989 "
+                     f"TFLOP/s)")
+            tc = dict(tc_bound_ms=tc_bound)
         print(f"[kernels] {fn.__name__} B={len(pos)} Sq={Sq} pos={pos} "
               f"pool {NB}x{BS}: kernel {ms:.4f} ms (device {_fmt(dev_ms)})"
               f", plain {plain_ms:.4f} ms, sdpa on the pre-gathered view "
               f"{lib:.4f} ms (device {_fmt(lib_dev)}; gather not timed), "
-              f"bound {bound:.4f} ms ({by})")
+              f"bound {bound:.4f} ms ({by}, fp32 at 67 TFLOP/s){extra}")
         res[fn.__name__].update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                                 bound_ms=bound, bound_by=by, library_ms=lib,
-                                library_device_ms=lib_dev)
+                                library_device_ms=lib_dev, **tc)
     return res
 
 
@@ -650,26 +684,35 @@ def _busy(engines) -> dict:
 
 
 # the wrapper that launches each hand-written kernel: K2's, K3's and K4's
-# split and combine passes are templates of csrc/split_kv.cuh told apart
-# by their addressing policy; the others are <name>_kernel in an anonymous
-# namespace of their source (K1's fp32-K/V body in a nested one)
-_ANON_KERNELS = (("flash_prefill_kernel<", "flash_prefill"),
-                 ("fp32kv::flash_prefill_fp32kv_kernel<", "flash_prefill"),
-                 ("chunk_prefill_kernel<", "chunk_prefill_attention"),
-                 ("rwkv6_scan_kernel<", "rwkv6_scan"))
-_SPLIT_KEYS = (("teola::DenseKeys", "decode_attention"),
-               ("teola::PagedKeys", "verify_attention"),
-               ("teola::PagedDecodeKeys", "paged_decode_attention"))
+# split and combine passes are templates of csrc/split_kv.cuh, K1's and
+# K5's tensor-core kernel is the template of csrc/flash_tile.cuh, each told
+# apart by its addressing policy; the others are <name>_kernel in an
+# anonymous namespace of their source (the fp32-K/V bodies of K1 and K5 in
+# a nested one)
+_ANON_KERNELS = (("fp32kv::flash_prefill_fp32kv_kernel<", "flash_prefill"),
+                 ("fp32kv::chunk_prefill_fp32kv_kernel<",
+                  "chunk_prefill_attention"),
+                 ("rwkv6_scan_kernel<", "rwkv6_scan"),
+                 ("rwkv6_decode_kernel<", "rwkv6_scan"))
+_TEMPLATE_KEYS = {
+    "void teola::split_kv_": (("teola::DenseKeys", "decode_attention"),
+                              ("teola::PagedKeys", "verify_attention"),
+                              ("teola::PagedDecodeKeys",
+                               "paged_decode_attention")),
+    "void teola::ft::flash_tile_kernel<": (
+        ("teola::DenseKeys", "flash_prefill"),
+        ("teola::ChunkPagedKeys", "chunk_prefill_attention"))}
 
 
 def kernel_owner(key: str):
     """The kernel wrapper whose C entry point launches the kernel the
     profiler names ``key``, or None for any other kernel."""
-    if key.startswith("void teola::split_kv_"):
-        for policy, owner in _SPLIT_KEYS:
-            if policy in key:
-                return owner
-        return None
+    for prefix, policies in _TEMPLATE_KEYS.items():
+        if key.startswith(prefix):
+            for policy, owner in policies:
+                if policy in key:
+                    return owner
+            return None
     for name, owner in _ANON_KERNELS:
         if key.startswith("void (anonymous namespace)::" + name):
             return owner
@@ -682,16 +725,55 @@ def _short(key: str) -> str:
     return k.split(">(")[0] + ">" if ">(" in k else k
 
 
+@contextlib.contextmanager
+def _scan_lengths():
+    """While open, the sequence length of every K6 call the model makes, in
+    order: the model's reference to the kernel wrapper is wrapped."""
+    from repro_torch.models import ssm
+    orig, lengths = ssm.rwkv6_scan, []
+
+    def traced(r, *args, **kw):
+        lengths.append(r.shape[1])
+        return orig(r, *args, **kw)
+    ssm.rwkv6_scan = traced
+    try:
+        yield lengths
+    finally:
+        ssm.rwkv6_scan = orig
+
+
+def _k6_split(prof, lengths):
+    """K6's device records in start order, matched one to one with its
+    calls' sequence lengths: {"decode" (S = 1) or "prefill": (us, calls)},
+    or None where the profiler kept another number of records than there
+    were calls. Any tree's kernel is split the same way, whatever its
+    kernels' names."""
+    from torch.autograd import DeviceType
+    recs = sorted((e.time_range.start, e.time_range.end - e.time_range.start)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and kernel_owner(e.name) == "rwkv6_scan")
+    if len(recs) != len(lengths):
+        return None
+    split = {}
+    for (_, us), n in zip(recs, lengths):
+        ph = split.setdefault("decode" if n == 1 else "prefill", [0.0, 0])
+        ph[0] += us
+        ph[1] += 1
+    return split
+
+
 def _profiled_query(teola, docs, card: str, kernels):
     """One more query under torch.profiler: the card's busy share of the
     query's wall time, the kernels that take it, and per wrapper of
     ``kernels`` the device time of everything it launched per call (after
     the measured window, so the profiler's cost is not in the numbers
-    above)."""
+    above). Fails if a wrapper that launched in the query is charged no
+    device time: its kernels' names would then be missing from
+    kernel_owner."""
     from torch.profiler import ProfilerActivity, profile
     n0 = {fn.__name__: fn.launches for fn in kernels}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _scan_lengths() as lengths, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         _, ctx = teola.query({"question": "what is fact 5 about optics",
                               "docs": docs}, timeout=600)
@@ -725,16 +807,28 @@ def _profiled_query(teola, docs, card: str, kernels):
         print(f"[profile]   hand-written {owner}: {total / 1e3:.3f} ms device"
               f" over {n_calls} wrapper calls ({each}) [{card}]; kernels: "
               f"{parts}")
+        if owner == "rwkv6_scan":
+            split = _k6_split(prof, lengths)
+            print("[profile]   rwkv6_scan by call: " + (
+                "; ".join(f"{ph} {t / 1e3:.3f} ms over {n} calls "
+                          f"({t / n:.2f} us each)"
+                          for ph, (t, n) in sorted(split.items()))
+                if split else f"not split ({sum(n for _, n, _ in rows)} "
+                f"device records for {len(lengths)} calls)") + f" [{card}]")
+    missed = [name for name, n in calls.items() if n > 0 and name not in mine]
+    if missed:
+        raise AssertionError(f"{missed} launched in the profiled query but "
+                             f"no device time is charged to them")
 
 
-def _warm_up(teola, docs) -> float:
-    """1 warm-up query; returns its seconds."""
+def _warm_up(teola, docs):
+    """1 warm-up query; returns (its seconds, its answer)."""
     t0 = time.time()
     _, ctx = teola.query({"question": "what is fact 1 about optics",
                           "docs": docs}, timeout=600)
     if ctx.error is not None:
         raise ctx.error
-    return time.time() - t0
+    return time.time() - t0, ctx.store.get("answer")
 
 
 def _run_window(teola, docs):
@@ -791,7 +885,7 @@ def phase_serve(dev, card: str, model="tinyllama-1.1b",
                 kernels=(flash_prefill, decode_attention), tag="serve"):
     """A dense path: naive-RAG under Teola with ``model`` as the core LLM,
     its KV or recurrent state in the dense cache, through ``kernels``.
-    Returns (launches, answers)."""
+    Returns (launches, answers: the warm-up query's, then the window's)."""
     torch.cuda.reset_peak_memory_stats()
     engines = build_engines(device=dev)
     core = LLMEngine("core_llm", get_config(model), seed=SEED, max_batch=4,
@@ -802,7 +896,7 @@ def phase_serve(dev, card: str, model="tinyllama-1.1b",
     try:
         for fn in kernels:
             fn.launches = 0
-        warm = _warm_up(teola, docs)
+        warm, warm_answer = _warm_up(teola, docs)
         dec0 = core.stats["decode_tokens"]
         busy0 = _busy(engines)
         wall, ctxs = _run_window(teola, docs)
@@ -813,7 +907,7 @@ def phase_serve(dev, card: str, model="tinyllama-1.1b",
         _profiled_query(teola, docs, card, kernels)
     finally:
         teola.shutdown()
-    answers = _check_answers(ctxs)
+    answers = [warm_answer] + _check_answers(ctxs)
     kinds = {sp.kind for st in core.cfg.stages for sp in st.pattern}
     print(f"[{tag}] core_llm {model}, {_layers(engines)} layers, "
           f"fp32 weights, dense "
@@ -842,7 +936,7 @@ def phase_serve_paged(dev, card: str, dense_answers):
     try:
         for fn in PAGED:
             fn.launches = 0
-        warm = _warm_up(teola, docs)
+        warm, warm_answer = _warm_up(teola, docs)
         dec0 = core.stats["decode_tokens"]
         busy0 = _busy(engines)
         wall, ctxs = _run_window(teola, docs)
@@ -854,7 +948,7 @@ def phase_serve_paged(dev, card: str, dense_answers):
         _profiled_query(teola, docs, card, PAGED)
     finally:
         teola.shutdown()
-    answers = _check_answers(ctxs)
+    answers = [warm_answer] + _check_answers(ctxs)
     # every sequence released (the runtime releases after marking a
     # query done): no block held but the radix tree's
     t0 = time.time()
@@ -884,9 +978,9 @@ def phase_serve_paged(dev, card: str, dense_answers):
           f"{core.alloc.capacity} blocks free, {held} held by the radix "
           f"tree, audit ok")
     same = sum(a == b for a, b in zip(answers, dense_answers))
-    print(f"[paged] {same} of {len(answers)} answers equal the dense "
-          f"path's token for token (printed only: the kernels sum in other "
-          f"orders)")
+    print(f"[paged] {same} of {len(answers)} answers (the warm-up query's "
+          f"and the window's) equal the dense path's token for token "
+          f"(printed only: the kernels sum in other orders)")
     return launches
 
 
@@ -917,21 +1011,50 @@ def _scan_case(B, S, H, hd, dev, dtype):
                                                   randn(B, H, hd, hd) * 0.1]
 
 
-def _scan_work(r):
-    """Bytes (r, k, v, w in, y out, the state in and out) and flops (per
-    (b, t, h): hd^2 each for k*v, u*kv, the add, r*(...) as a multiply-add
-    (2) and w*S + kv as a multiply-add (2): 7*hd^2) of one K6 call."""
+# fp32 operations per state element and step (a multiply-add counts 2):
+# 7 as K6's bound has counted them since its first port (k*v, u*kv, the
+# add, r*(...) and w*S + kv as multiply-adds), kept so that its rows stay
+# comparable; 5 that the recurrence needs, its bonus term taken out of the
+# sum (k*v, then w*S + kv and r*S as multiply-adds)
+SCAN_OPS, SCAN_OPS_NEEDED = 7, 5
+
+
+def _scan_work(r, ops: int = SCAN_OPS):
+    """Bytes (r, k, v, w in, y out, the state in and out) and flops
+    (``ops`` * hd^2 per (b, t, h)) of one K6 call."""
     B, S, H, hd = r.shape
     nbytes = (4 * r.numel() * r.element_size() + r.numel() * 4
               + 2 * B * H * hd * hd * 4)
-    return nbytes, 7 * hd * hd * B * S * H
+    return nbytes, ops * hd * hd * B * S * H
+
+
+K6_LAYERS = 32                        # RWKV-6 3B's layers: one state each
+
+
+def k6_cold_warm(scan, dev):
+    """Device ms of one K6 decode step (B=4, S=1, RWKV-6 3B's heads, fp32),
+    each call writing its state in place as the model does: cold, walking
+    K6_LAYERS distinct states one call each as the model walks its layers
+    (84 MB of state, more than the 50 MB L2, so each call finds its state
+    in device memory), and warm, one state called again and again (in L2).
+    None where the profiler saw nothing."""
+    xs = [_scan_case(4, 1, 40, 64, dev, torch.float32)
+          for _ in range(K6_LAYERS)]
+
+    def walk():
+        for x in xs:
+            scan(*x, out_state=x[5])
+    cold = device_ms(walk)
+    return (None if cold is None else cold / K6_LAYERS,
+            device_ms(lambda: scan(*xs[0], out_state=xs[0][5])))
 
 
 def phase_rwkv_kernel(dev) -> dict:
     """K6 against its plain version (y and the final state), then timed
-    at the serve path's shapes. Returns {max_abs_err, ms, plain_ms,
-    bound_ms, bound_by, library_ms} at the decode shape (B=4, S=1), the
-    one the serve path launches most."""
+    at the serve path's shapes, and its decode step cold and warm. Returns
+    {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms,
+    cold_device_ms} at the decode shape (B=4, S=1), the one the serve
+    path launches most."""
     res = {"max_abs_err": 0.0}
     cases = [(4, S, 40, 64) for S in (512, 128, 1)] + [(4, 128, 80, 32)]
     for B, S, H, hd in cases:
@@ -958,12 +1081,23 @@ def phase_rwkv_kernel(dev) -> dict:
         dev_ms = device_ms(lambda: rwkv6_scan(*xs))
         plain = cuda_ms(lambda: rwkv6_scan_plain(*xs), iters=5, warmup=1)
         bound, by = _bound(*_scan_work(xs[0]))
+        need, need_by = _bound(*_scan_work(xs[0], SCAN_OPS_NEEDED))
         print(f"[rwkv] rwkv6_scan B=4 S={S} H=40 hd=64 fp32: kernel "
               f"{ms:.4f} ms (device {_fmt(dev_ms)}), plain {plain:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}); no single PyTorch call "
-              f"computes the recurrence")
+              f"bound {bound:.4f} ms ({by}, {SCAN_OPS}*hd^2 per step), "
+              f"{need:.4f} ms ({need_by}) at the {SCAN_OPS_NEEDED}*hd^2 the "
+              f"recurrence needs; no single PyTorch call computes the "
+              f"recurrence")
         res.update(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound,
-                   bound_by=by, library_ms=None, library_device_ms=None)
+                   bound_by=by, needed_bound_ms=need, library_ms=None,
+                   library_device_ms=None)
+    cold, warm = k6_cold_warm(rwkv6_scan, dev)
+    print(f"[rwkv] rwkv6_scan decode step B=4 S=1 H=40 hd=64 fp32, state "
+          f"written in place: cold {_fmt(cold)} per call over "
+          f"{K6_LAYERS} states ({K6_LAYERS} x 2.6 MB, more than the L2), "
+          f"warm {_fmt(warm)} (one state, in L2), bound {res['bound_ms']:.4f}"
+          f" ms ({res['bound_by']})")
+    res["cold_device_ms"] = cold
     return res
 
 
@@ -1030,6 +1164,14 @@ def main() -> int:
         return 2
     dev = torch.device("cuda")
     card = card_line()
+    if TIMING:
+        print(f"[timing] repro_torch from {SRC} [{card}]")
+        build.build_all()
+        phase_kernels(dev)
+        phase_paged_kernels(dev)
+        phase_rwkv_kernel(dev)
+        phase_serve(dev, card, RWKV, (rwkv6_scan,), "rwkv-serve")
+        return 0
     phase_toolchain(card)
     phase_build()
     kres = phase_kernels(dev)
@@ -1071,8 +1213,9 @@ def main() -> int:
                         "library_ms": r["library_ms"],
                         "device_ms": r["device_ms"],
                         "library_device_ms": r["library_device_ms"]})
-        if "tc_bound_ms" in r:
-            kernels[-1]["tc_bound_ms"] = r["tc_bound_ms"]
+        for extra in ("tc_bound_ms", "needed_bound_ms", "cold_device_ms"):
+            if extra in r:
+                kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

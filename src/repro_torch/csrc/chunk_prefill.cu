@@ -1,6 +1,6 @@
 // Chunked-prefill attention over the block-paged KV pool, for Hopper
 // (sm_90a). Replaces the Pallas TPU kernel
-// src/repro/kernels/chunk_prefill.py::chunk_prefill_attention
+// src/repro/kernels/chunk_prefill.py:102 chunk_prefill_attention
 // (_chunk_kernel).
 //
 // A chunk of Sq queries of sequence b sits at absolute positions
@@ -12,28 +12,42 @@
 // bucket-padded chunk past its real tokens read whatever their table
 // entries hold (the pad block), and the caller discards them.
 //
-// Design: K1's (flash_prefill.cu), reading K/V through the block table.
-// One CTA per (q tile of BQ rows, query head, sequence), 128 threads, 4
-// per query row. The CTA walks tiles of BK logical keys up to the tile's
-// causal limit min(maxblk * bs, start[b] + q_tile_end) (tiles past it are
-// never loaded: the reference's causal block skip) and, with a window,
-// from the first tile the window reaches. Per tile, threads look up each
-// key's physical row through the table once, then the tile is staged in
-// shared memory as fp32 (rows padded by one word against bank conflicts);
-// scores, the running max / denominator and the output accumulator stay in
-// registers: the fp32 online softmax of the reference, with its NEG_INF
-// sentinel and its 1e-30 floor on the denominator. Ragged Sq is masked in
-// the kernel, so no Sq % bq rule remains.
+// What bounds it on the H100: as for K1, ~4*hd flops per visible (query
+// head, key) pair against 4*hd bytes of bf16 K/V per key and kv head, read
+// once for the G heads of its group: far above the card's flop:byte
+// ridge at the serving chunk sizes (64-128), so the arithmetic bounds it;
+// 67 TFLOP/s in fp32 on the CUDA cores, 989 TFLOP/s in bf16 on the tensor
+// cores at three bf16 products per fp32 one.
 //
-// What bounds it on the H100: as for K1, ~4*Sq*T_eff*hd flops per head
-// against 2*T_eff*K*hd*2 bytes of K/V per sequence, far above the card's
-// flop:byte ridge at the serving chunk sizes (64-128), so it is
-// compute-bound. This first version computes in fp32 on the CUDA cores
-// from shared memory and uses no tensor cores; wgmma on bf16 tiles and
-// table-driven TMA loads are later work (ROADMAP.md Queue 2).
-#include "common.cuh"
+// Design (bf16 pools, every engine's): K1's kernel, flash_tile.cuh's
+// flash_tile_kernel, over the block table (ChunkPagedKeys), with base =
+// start and the key limit maxblk * bs:
+//  - GQA packing: one CTA per (128 / G chunk positions x G heads = 128
+//    rows, kv head, sequence); each K/V tile is read once for the group.
+//  - K/V tiles of 64 logical keys, each key's row looked up through the
+//    table and copied by 16-byte cp.async into a two-stage ring; the walk
+//    runs from the window's first tile up to the CTA's causal limit
+//    min(maxblk * bs, start[b] + last position + 1), the reference's
+//    causal block skip: tiles past it are never loaded, and no table entry
+//    past maxblk is read.
+//  - Both products on wgmma with an fp32 q and the fp32 probabilities in
+//    three bf16 pieces each; the reference's fp32 online softmax, its
+//    NEG_INF sentinel and its 1e-30 floor (flash_tile.cuh).
+//
+// fp32 pools (dispatched, stored by no engine path) keep the first port's
+// CUDA-core body as fp32kv::chunk_prefill_fp32kv_kernel: one CTA per
+// (32-row q tile, query head, sequence), 128 threads, each tile's physical
+// rows looked up once, K/V staged in shared memory as fp32, scalar fp32
+// FMAs.
+#include <type_traits>
+
+#include "flash_tile.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// fp32 pools only: the first port's CUDA-core body (see the header).
+namespace fp32kv {
 
 constexpr int BQ = 32;   // query rows per CTA
 constexpr int BK = 64;   // keys per KV tile
@@ -48,11 +62,13 @@ constexpr size_t smem_bytes() {
 
 template <int HD, typename TQ, typename TKV>
 __global__ void __launch_bounds__(NT)
-chunk_prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
-                     const TKV* __restrict__ vp, TQ* __restrict__ o,
-                     const int* __restrict__ tables,
-                     const int* __restrict__ start, int Sq, int H, int K,
-                     int bs, int maxblk, float scale, int window, float cap) {
+chunk_prefill_fp32kv_kernel(const TQ* __restrict__ q,
+                            const TKV* __restrict__ kp,
+                            const TKV* __restrict__ vp, TQ* __restrict__ o,
+                            const int* __restrict__ tables,
+                            const int* __restrict__ start, int Sq, int H,
+                            int K, int bs, int maxblk, float scale,
+                            int window, float cap) {
   using teola::NEG_INF;
   constexpr int LD = HD + 1;
   constexpr int LP = BK + 1;
@@ -168,26 +184,37 @@ chunk_prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
     const float den = fmaxf(l, 1e-30f);
     TQ* out = o + ((size_t)(b * Sq + q0 + r) * H + h) * HD;
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) out[c + 4 * i] = teola::from_f<TQ>(acc[i] / den);
+    for (int i = 0; i < DPT; ++i)
+      out[c + 4 * i] = teola::from_f<TQ>(acc[i] / den);
   }
 }
+
+}  // namespace fp32kv
 
 template <int HD, typename TQ, typename TKV>
 int launch(const void* q, const void* kp, const void* vp, void* o,
            const int* tables, const int* start, int B, int Sq, int H, int K,
            int bs, int maxblk, float scale, int window, float cap,
            cudaStream_t stream) {
-  auto kern = chunk_prefill_kernel<HD, TQ, TKV>;
-  const size_t smem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(kp),
-      static_cast<const TKV*>(vp), static_cast<TQ*>(o), tables, start, Sq, H,
-      K, bs, maxblk, scale, window, cap);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<TKV, float>::value) {
+    auto kern = fp32kv::chunk_prefill_fp32kv_kernel<HD, TQ, TKV>;
+    constexpr size_t smem = fp32kv::smem_bytes<HD>();
+    // once per instantiation, outside any CUDA-graph capture
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (attr != cudaSuccess) return (int)attr;
+    dim3 grid((Sq + fp32kv::BQ - 1) / fp32kv::BQ, H, B);
+    kern<<<grid, fp32kv::NT, smem, stream>>>(
+        static_cast<const TQ*>(q), static_cast<const TKV*>(kp),
+        static_cast<const TKV*>(vp), static_cast<TQ*>(o), tables, start, Sq,
+        H, K, bs, maxblk, scale, window, cap);
+    return (int)cudaGetLastError();
+  } else {
+    return teola::ft::flash_tile_launch<HD, TQ>(
+        q, kp, vp, o, start, nullptr,
+        teola::ChunkPagedKeys{{tables, bs, maxblk}}, B, Sq, H, K, scale,
+        window, cap, stream);
+  }
 }
 
 }  // namespace

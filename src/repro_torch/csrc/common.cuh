@@ -89,7 +89,7 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Where key j of sequence b, kv head kvh, lives: row(...) * hd is the
 // element offset of its K (and V) row. The split-KV template
-// (split_kv.cuh) and the flash tile core (flash_tile.cuh) take one of
+// (split_kv.cuh) and the flash tile kernel (flash_tile.cuh) take one of
 // these as their addressing policy.
 
 // Dense cache (B, T, K, hd): key j of sequence b is row (b*T + j)*K + kvh.
@@ -118,5 +118,9 @@ struct PagedKeys {
 // K4's paged addressing: PagedKeys under a name of its own, so that its
 // instantiations (and the profiler's kernel names) stay apart from K3's.
 struct PagedDecodeKeys : PagedKeys {};
+
+// K5's paged addressing for the flash tile core (flash_tile.cuh), under a
+// name of its own for the same reason.
+struct ChunkPagedKeys : PagedKeys {};
 
 }  // namespace teola

@@ -15,8 +15,10 @@
 // that is 67 TFLOP/s; on the tensor cores in bf16, 989 TFLOP/s, at three
 // bf16 products per fp32 one (below).
 //
-// Design (bf16 K/V, every engine's cache): flash_prefill_kernel, built
-// from flash_tile.cuh.
+// Design (bf16 K/V, every engine's cache): flash_tile.cuh's
+// flash_tile_kernel over the dense cache (DenseKeys{T}), with base =
+// prefix and the key limit min(T, total[b]); K5 runs the same kernel over
+// the block table.
 //  - GQA packing: one CTA per (tile of BQ query positions, kv head,
 //    sequence), its 128 rows the (position, head-in-group) pairs, position
 //    major: BQ = 128 / G positions (16 at TinyLlama's G = 8). Each K/V tile
@@ -50,110 +52,7 @@
 
 namespace {
 
-using teola::NEG_INF;
 namespace ft = teola::ft;
-
-template <int HD, typename TQ>
-__global__ void __launch_bounds__(ft::NT, 1)
-flash_prefill_kernel(const TQ* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, TQ* __restrict__ o,
-                     const int* __restrict__ prefix,
-                     const int* __restrict__ total, int Sq, int H, int K,
-                     int T, int GC, int NHC, float scale, int window,
-                     float cap) {
-  // pieces of Q: three of an fp32 q, a bf16 q as it is
-  constexpr int NQ = std::is_same<TQ, float>::value ? ft::NP : 1;
-  constexpr int TB = ft::tile_bytes<HD>(), SB = ft::stage_bytes<HD>();
-  const int G = H / K, BQ = ft::ROWS / GC;
-  const int q0 = blockIdx.x * BQ, b = blockIdx.z;
-  const int kvh = blockIdx.y / NHC, hc = blockIdx.y % NHC;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int pre = prefix[b], tot = total[b];
-  const int npos = min(BQ, Sq - q0);   // query positions of this tile
-  const int lim = min(T, tot);         // keys any row may see
-  const int hi = min(lim, pre + q0 + npos);
-  int lo = window > 0 ? max(0, pre + q0 - window + 1) : 0;
-  lo = lo / ft::BK * ft::BK;
-  const int ntiles = hi > lo ? (hi - lo + ft::BK - 1) / ft::BK : 0;
-  const teola::DenseKeys keys{T};
-
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* qs = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<size_t>(smem_raw) + 1023) & ~(size_t)1023);
-  unsigned char* ring = qs + NQ * ft::q_bytes<HD>();
-  // stage st: the K tile at ring + st*SB, the V tile after it
-  if (ntiles > 0) {
-    ft::load_tile<HD>(ring, k, keys, b, kvh, K, lo, hi, tid);
-    teola::cp_async_commit();
-    ft::load_tile<HD>(ring + TB, v, keys, b, kvh, K, lo, hi, tid);
-    teola::cp_async_commit();
-  }
-
-  // CTA row r is position r / GC of the tile and head hc*GC + r % GC of
-  // the group; returns the element offset of its q / o row, or -1
-  auto row_off = [&](int r) -> long long {
-    const int p = r / GC, g = hc * GC + r % GC;
-    if (p >= npos || g >= G) return -1;
-    return (((long long)b * Sq + q0 + p) * H + kvh * G + g) * HD;
-  };
-  // Q's pieces, four lanes per row, while the first tile's copies fly
-#pragma unroll
-  for (int pass = 0; pass < ft::ROWS / (ft::NT / 4); ++pass) {
-    const int r = pass * (ft::NT / 4) + (tid >> 2);
-    const long long off = row_off(r);
-    ft::store_q<HD, NQ>(qs, r, off >= 0 ? q + off : nullptr, tid & 3);
-  }
-  // this thread's accumulator rows r0, r1 (16*warp + lane/4 + 8r)
-  int qpos[2];
-  TQ* orow[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = 16 * warp + (lane >> 2) + 8 * r;
-    const long long off = row_off(row);
-    qpos[r] = off >= 0 ? pre + q0 + row / GC : -1;  // -1: sees no key
-    orow[r] = off >= 0 ? o + off : nullptr;
-  }
-  // a warpgroup whose first row is past the tile's positions has no row
-  const int wg = warp >> 2;
-  const bool live = (64 * wg) / GC < npos;
-  const uint32_t qa = ft::smem_addr(qs) + wg * 64 * 128;
-
-  float acc[HD / 2], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int j0 = lo + t * ft::BK;
-    unsigned char* kt = ring + (t & 1) * SB;
-    if (t + 1 < ntiles) {  // the next tile into the other stage
-      unsigned char* nk = ring + ((t + 1) & 1) * SB;
-      ft::load_tile<HD>(nk, k, keys, b, kvh, K, j0 + ft::BK, hi, tid);
-      teola::cp_async_commit();
-      ft::load_tile<HD>(nk + TB, v, keys, b, kvh, K, j0 + ft::BK, hi, tid);
-    } else {
-      teola::cp_async_commit();  // empty groups keep the count uniform
-    }
-    teola::cp_async_commit();
-    teola::cp_async_wait<3>();  // this tile's K
-    ft::fence_async_smem();
-    __syncthreads();
-    float s[32];
-    uint32_t pa[ft::NP][4][4];
-    if (live) {
-      ft::qk_tile<HD, NQ>(s, qa, ft::smem_addr(kt));
-      ft::softmax_tile<HD>(s, acc, m, l, qpos, j0, lim, window, scale, cap,
-                           lane);
-      ft::p_frags(s, pa);
-    }
-    teola::cp_async_wait<2>();  // this tile's V
-    ft::fence_async_smem();
-    __syncthreads();
-    if (live) ft::pv_tile<HD>(acc, pa, ft::smem_addr(kt + TB));
-    __syncthreads();  // the stage is free for tile t + 2
-  }
-  ft::finish_rows<HD>(acc, l, orow, lane);
-}
 
 // ---------------------------------------------------------------------------
 // fp32 K/V only: the first port's CUDA-core body (see the header).
@@ -304,24 +203,12 @@ int launch(const void* q, const void* k, const void* v, void* o,
         static_cast<const TQ*>(q), static_cast<const TKV*>(k),
         static_cast<const TKV*>(v), static_cast<TQ*>(o), prefix, total, Sq,
         H, K, T, scale, window, cap);
+    return (int)cudaGetLastError();
   } else {
-    if ((reinterpret_cast<size_t>(k) | reinterpret_cast<size_t>(v)) & 15)
-      return (int)cudaErrorMisalignedAddress;
-    const int G = H / K, GC = G < ft::ROWS ? G : ft::ROWS;
-    const int NHC = (G + GC - 1) / GC, BQ = ft::ROWS / GC;
-    auto kern = flash_prefill_kernel<HD, TQ>;
-    constexpr size_t smem =
-        ft::smem_bytes<HD, std::is_same<TQ, float>::value ? ft::NP : 1>();
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (attr != cudaSuccess) return (int)attr;
-    dim3 grid((Sq + BQ - 1) / BQ, K * NHC, B);
-    kern<<<grid, ft::NT, smem, stream>>>(
-        static_cast<const TQ*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<TQ*>(o), prefix,
-        total, Sq, H, K, T, GC, NHC, scale, window, cap);
+    return ft::flash_tile_launch<HD, TQ>(q, k, v, o, prefix, total,
+                                         teola::DenseKeys{T}, B, Sq, H, K,
+                                         scale, window, cap, stream);
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -1,8 +1,9 @@
 // Tile core of the port's tensor-core flash attention, for Hopper (sm_90a):
-// the pieces a kernel is made of that walks 64-key K/V tiles for 128 packed
-// query rows. K1 flash_prefill (flash_prefill.cu) uses it over the dense
-// cache (DenseKeys); K5's paged chunked prefill can use it over the block
-// table (PagedKeys) without change.
+// the pieces of a kernel that walks 64-key K/V tiles for 128 packed query
+// rows, and that kernel, flash_tile_kernel, one template over the key
+// addressing (common.cuh). K1 flash_prefill (flash_prefill.cu) runs it over
+// the dense cache (DenseKeys), K5 chunk_prefill_attention (chunk_prefill.cu)
+// over the block table of the paged pool (ChunkPagedKeys).
 //
 // Rows. A CTA holds ROWS = 128 query rows, two warpgroups of 64, warp w
 // rows 16w..16w+15. Each thread holds two of its warp's rows, r0 = lane/4
@@ -45,6 +46,8 @@
 #pragma once
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -434,6 +437,149 @@ __device__ __forceinline__ void pv_tile(float (&o)[HD / 2],
     }
   wg_commit_wait();
   fence_regs(o);
+}
+
+// ---------------------------------------------------------------------------
+// The kernel. Chunk row i of sequence b sits at position base[b] + i; it
+// sees key j when j < lim = min(keys.span(), total[b]) (keys.span() when
+// total is null), j <= its position and (window > 0) j > position -
+// window. q and o are (B, Sq, H, hd); K and V are addressed by keys.
+//
+// GQA packing: one CTA per (tile of BQ query positions, kv head, sequence),
+// its 128 rows the (position, head-in-group) pairs, position major: GC =
+// min(G, 128) heads of the group, BQ = 128 / GC positions (16 at
+// TinyLlama's G = 8). Each K/V tile is read once for all GC heads. A G that
+// does not divide 128 pads rows; G > 128 takes NHC = ceil(G / 128) CTAs
+// per kv head. The CTA walks tiles from the window's first (0 without
+// one) up to its causal limit min(lim, base[b] + last position + 1):
+// tiles past it are never loaded, and no key at or past that limit is
+// addressed (for paged keys: no table entry past maxblk is read).
+template <int HD, typename TQ, typename Keys>
+__global__ void __launch_bounds__(NT, 1)
+flash_tile_kernel(const TQ* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, TQ* __restrict__ o,
+                  const int* __restrict__ base,
+                  const int* __restrict__ total, Keys keys, int Sq, int H,
+                  int K, int GC, int NHC, float scale, int window,
+                  float cap) {
+  // pieces of Q: three of an fp32 q, a bf16 q as it is
+  constexpr int NQ = std::is_same<TQ, float>::value ? NP : 1;
+  constexpr int TB = tile_bytes<HD>(), SB = stage_bytes<HD>();
+  const int G = H / K, BQ = ROWS / GC;
+  const int q0 = blockIdx.x * BQ, b = blockIdx.z;
+  const int kvh = blockIdx.y / NHC, hc = blockIdx.y % NHC;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int pre = base[b];
+  const int npos = min(BQ, Sq - q0);   // query positions of this tile
+  const int lim = total ? min(keys.span(), total[b]) : keys.span();
+  const int hi = min(lim, pre + q0 + npos);
+  int lo = window > 0 ? max(0, pre + q0 - window + 1) : 0;
+  lo = lo / BK * BK;
+  const int ntiles = hi > lo ? (hi - lo + BK - 1) / BK : 0;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<size_t>(smem_raw) + 1023) & ~(size_t)1023);
+  unsigned char* ring = qs + NQ * q_bytes<HD>();
+  // stage st: the K tile at ring + st*SB, the V tile after it
+  if (ntiles > 0) {
+    load_tile<HD>(ring, k, keys, b, kvh, K, lo, hi, tid);
+    cp_async_commit();
+    load_tile<HD>(ring + TB, v, keys, b, kvh, K, lo, hi, tid);
+    cp_async_commit();
+  }
+
+  // CTA row r is position r / GC of the tile and head hc*GC + r % GC of
+  // the group; returns the element offset of its q / o row, or -1
+  auto row_off = [&](int r) -> long long {
+    const int p = r / GC, g = hc * GC + r % GC;
+    if (p >= npos || g >= G) return -1;
+    return (((long long)b * Sq + q0 + p) * H + kvh * G + g) * HD;
+  };
+  // Q's pieces, four lanes per row, while the first tile's copies fly
+#pragma unroll
+  for (int pass = 0; pass < ROWS / (NT / 4); ++pass) {
+    const int r = pass * (NT / 4) + (tid >> 2);
+    const long long off = row_off(r);
+    store_q<HD, NQ>(qs, r, off >= 0 ? q + off : nullptr, tid & 3);
+  }
+  // this thread's accumulator rows r0, r1 (16*warp + lane/4 + 8r)
+  int qpos[2];
+  TQ* orow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * warp + (lane >> 2) + 8 * r;
+    const long long off = row_off(row);
+    qpos[r] = off >= 0 ? pre + q0 + row / GC : -1;  // -1: sees no key
+    orow[r] = off >= 0 ? o + off : nullptr;
+  }
+  // a warpgroup whose first row is past the tile's positions has no row
+  const int wg = warp >> 2;
+  const bool live = (64 * wg) / GC < npos;
+  const uint32_t qa = smem_addr(qs) + wg * 64 * 128;
+
+  float acc[HD / 2], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int j0 = lo + t * BK;
+    unsigned char* kt = ring + (t & 1) * SB;
+    if (t + 1 < ntiles) {  // the next tile into the other stage
+      unsigned char* nk = ring + ((t + 1) & 1) * SB;
+      load_tile<HD>(nk, k, keys, b, kvh, K, j0 + BK, hi, tid);
+      cp_async_commit();
+      load_tile<HD>(nk + TB, v, keys, b, kvh, K, j0 + BK, hi, tid);
+    } else {
+      cp_async_commit();  // empty groups keep the count uniform
+    }
+    cp_async_commit();
+    cp_async_wait<3>();  // this tile's K
+    fence_async_smem();
+    __syncthreads();
+    float s[32];
+    uint32_t pa[NP][4][4];
+    if (live) {
+      qk_tile<HD, NQ>(s, qa, smem_addr(kt));
+      softmax_tile<HD>(s, acc, m, l, qpos, j0, lim, window, scale, cap,
+                       lane);
+      p_frags(s, pa);
+    }
+    cp_async_wait<2>();  // this tile's V
+    fence_async_smem();
+    __syncthreads();
+    if (live) pv_tile<HD>(acc, pa, smem_addr(kt + TB));
+    __syncthreads();  // the stage is free for tile t + 2
+  }
+  finish_rows<HD>(acc, l, orow, lane);
+}
+
+// Launch flash_tile_kernel for q (B, Sq, H, hd) and bf16 K/V addressed by
+// keys; returns a cudaError_t. The shared-memory attribute is set once per
+// instantiation (a function-local static), so a launch under CUDA-graph
+// capture makes no other runtime call.
+template <int HD, typename TQ, typename Keys>
+int flash_tile_launch(const void* q, const void* k, const void* v, void* o,
+                      const int* base, const int* total, const Keys& keys,
+                      int B, int Sq, int H, int K, float scale, int window,
+                      float cap, cudaStream_t stream) {
+  if ((reinterpret_cast<size_t>(k) | reinterpret_cast<size_t>(v)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  const int G = H / K, GC = G < ROWS ? G : ROWS;
+  const int NHC = (G + GC - 1) / GC, BQ = ROWS / GC;
+  auto kern = flash_tile_kernel<HD, TQ, Keys>;
+  constexpr size_t smem =
+      smem_bytes<HD, std::is_same<TQ, float>::value ? NP : 1>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((Sq + BQ - 1) / BQ, K * NHC, B);
+  kern<<<grid, NT, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<TQ*>(o), base, total,
+      keys, Sq, H, K, GC, NHC, scale, window, cap);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace ft

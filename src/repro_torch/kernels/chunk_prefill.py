@@ -5,18 +5,23 @@ Prefilling, and every chunk of a chunked prefill).
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/chunk_prefill.py::
 chunk_prefill_attention`` (``_chunk_kernel``) with a CUDA kernel written
-for Hopper, ``repro_torch/csrc/chunk_prefill.cu``. That file's header says
-what bounds it on the H100 (compute: fp32 on the CUDA cores in this first
-version) and what its design does about that: K1's tiling, reading K/V
-rows through the block table straight from the ``(nb, bs, K, hd)`` pool,
-with the reference's causal block skip and ragged ``Sq`` masked in the
-kernel.
+for Hopper, ``repro_torch/csrc/chunk_prefill.cu``: K1's tensor-core tile
+kernel (``csrc/flash_tile.cuh``: GQA-packed 128-row tiles, bf16 K/V staged
+by cp.async, both products on wgmma with an fp32 q and the fp32
+probabilities in three bf16 pieces each) reading K/V rows through the
+block table straight from the ``(nb, bs, K, hd)`` pool, with the
+reference's causal block skip. Those files say what bounds it on the H100
+and how the design follows from that.
 
 ``chunk_prefill_attention`` launches the kernel for CUDA tensors and runs
 ``chunk_prefill_attention_plain`` — the verify oracle at total length
 ``start + Sq``, over the gathered view — for CPU tensors. There is no
 fallback between the two: a CUDA call that cannot launch raises.
 ``chunk_prefill_attention.launches`` counts kernel launches.
+
+``chunk_prefill_split_plain`` mirrors the kernel's arithmetic in plain
+PyTorch (K1's ``flash_prefill_split_plain`` over the gathered view). Only
+the tests use it.
 """
 from __future__ import annotations
 
@@ -26,7 +31,9 @@ import threading
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_attention import (check_paged_args, per_seq,
+from repro_torch.kernels.flash_prefill import flash_prefill_split_plain
+from repro_torch.kernels.paged_attention import (check_paged_args,
+                                                 paged_gather, per_seq,
                                                  verify_attention_plain)
 
 _count_lock = threading.Lock()
@@ -45,6 +52,21 @@ def chunk_prefill_attention_plain(q, k_pool, v_pool, block_tables, start, *,
     return verify_attention_plain(q, k_pool, v_pool, block_tables,
                                   start + q.shape[1], window=window, cap=cap,
                                   scale=scale)
+
+
+def chunk_prefill_split_plain(q, k_pool, v_pool, block_tables, start, *,
+                              window=None, cap=None, scale=None, pieces=3):
+    """The tensor-core kernel's arithmetic in plain PyTorch (tests only):
+    ``flash_prefill_split_plain`` over the gathered view, chunk row i of
+    sequence b at ``start[b] + i`` and total length ``start[b] + Sq``.
+    Pools hold bf16 values (exact tensor-core operands). Returns
+    (B,Sq,H,hd) in q's dtype."""
+    start = per_seq(start, q.shape[0], "cpu")
+    return flash_prefill_split_plain(
+        q, paged_gather(k_pool, block_tables),
+        paged_gather(v_pool, block_tables), prefix_len=start,
+        total_len=start + q.shape[1], window=window, cap=cap, scale=scale,
+        pieces=pieces)
 
 
 def chunk_prefill_attention(q, k_pool, v_pool, block_tables, start, *,

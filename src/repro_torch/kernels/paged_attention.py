@@ -81,7 +81,8 @@ def verify_attention_plain(q, k_pool, v_pool, block_tables, length, *,
     """q (B,Sq,H,hd); pools (nb,bs,K,hd); block_tables (B,maxblk); length
     (B,) total valid length INCLUDING the Sq chunk positions (query i sits
     at length - Sq + i). Masked attention over the gathered view, causal
-    inside the chunk. Returns (B,Sq,H,hd) in q's dtype."""
+    inside the chunk. Returns (B,Sq,H,hd) in q's dtype. Computes in
+    float32, or in float64 for a float64 q (the tests' referee)."""
     B, Sq, H, hd = q.shape
     k = paged_gather(k_pool, block_tables)
     v = paged_gather(v_pool, block_tables)
@@ -90,8 +91,9 @@ def verify_attention_plain(q, k_pool, v_pool, block_tables, length, *,
     if scale is None:
         scale = hd ** -0.5
     length = per_seq(length, B, q.device).long()
-    qg = q.reshape(B, Sq, K, G, hd).float()
-    s = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) * scale
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qg = q.reshape(B, Sq, K, G, hd).to(ct)
+    s = torch.einsum("bskgh,btkh->bkgst", qg, k.to(ct)) * scale
     if cap is not None:
         s = cap * torch.tanh(s / cap)
     q_pos = (length[:, None] - Sq
@@ -102,7 +104,7 @@ def verify_attention_plain(q, k_pool, v_pool, block_tables, length, *,
         mask &= k_pos > q_pos - window
     s = torch.where(mask[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgst,btkh->bskgh", p, v.float())
+    o = torch.einsum("bkgst,btkh->bskgh", p, v.to(ct))
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 

@@ -2,14 +2,24 @@
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/rwkv6_scan.py::
 rwkv6_scan`` (``_kernel``) with a CUDA kernel written for Hopper,
-``repro_torch/csrc/rwkv6_scan.cu``. That file's header says what bounds
-it on the H100 and what its design does about that.
+``repro_torch/csrc/rwkv6_scan.cu``: a column split of the recurrence,
+each thread holding a few rows x 2 columns of one ``(b, h)``'s state (32
+columns per CTA and 8 rows per thread for a prefill, its inputs staged
+16 steps at a time; a decode step is a kernel of its own, 16 and 4, that
+stages nothing), the row groups' partial sums added once per chunk of
+steps and the bonus term hoisted out of the sum over rows. That file's
+header says what bounds it on the H100 and what its design does about
+that.
 
 ``rwkv6_scan`` launches the kernel for CUDA tensors and runs
 ``rwkv6_scan_plain`` — the recurrence of ``repro/kernels/ref.py::
 rwkv6_scan_ref`` in plain PyTorch, one timestep at a time in float32 —
 for CPU tensors. There is no fallback between the two: a CUDA call that
 cannot launch raises. ``rwkv6_scan.launches`` counts kernel launches.
+
+``rwkv6_scan_split_plain`` mirrors the kernel's order of summation in
+plain PyTorch (the row-group partials, the hoisted bonus term). Only the
+tests use it.
 """
 from __future__ import annotations
 
@@ -45,6 +55,32 @@ def rwkv6_scan_plain(r, k, v, w, u, state0):
     return torch.stack(ys, dim=1), st
 
 
+def rwkv6_scan_split_plain(r, k, v, w, u, state0, rows=None):
+    """The kernel's arithmetic in plain PyTorch (tests only): per step
+    y_t = sum over the row groups (``rows`` consecutive rows of the state
+    each; by default the kernel's: 4 for a decode step, 8 for S > 1) of
+    (sum over the group's rows j of r_t[j] S[j]) + v_t * (sum_j r_t[j]
+    u[j] k_t[j]), the bonus term once per step and not per column; then
+    S <- diag(w_t) S + k_t v_t^T. Same arguments and results as
+    ``rwkv6_scan_plain``."""
+    rf, kf, vf, wf = [a.float() for a in (r, k, v, w)]
+    uf = u.float()
+    st = state0.float()
+    B, S, H, hd = r.shape
+    rows = rows or (4 if S == 1 else 8)
+    groups = hd // rows
+    ys = []
+    for t in range(S):
+        rg = rf[:, t].reshape(B, H, groups, rows)
+        part = torch.einsum("bhgr,bhgrv->bhgv", rg,
+                            st.reshape(B, H, groups, rows, hd))
+        bonus = (rf[:, t] * uf * kf[:, t]).sum(-1)          # (B,H)
+        ys.append(part.sum(2) + vf[:, t] * bonus[..., None])
+        st = wf[:, t, :, :, None] * st + \
+            kf[:, t, :, :, None] * vf[:, t, :, None, :]
+    return torch.stack(ys, dim=1), st
+
+
 def _check(r, k, v, w, u, state0, out_state):
     B, S, H, hd = r.shape
     if S < 1 or hd not in HEAD_DIMS:
@@ -68,6 +104,10 @@ def _check(r, k, v, w, u, state0, out_state):
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("rwkv6_scan: the kernel takes contiguous tensors "
                          "only (no copy is made)")
+    if any(t.data_ptr() % 16 for t in ts if t is not u):
+        raise ValueError("rwkv6_scan: the kernel copies 16 bytes at a time; "
+                         "r, k, v, w and the states must be 16-byte "
+                         "aligned")
 
 
 def rwkv6_scan(r, k, v, w, u, state0, out_state=None):

@@ -574,3 +574,213 @@ def test_flash_prefill_tc_at_three_times_scale(cuda, hd):
     err32 = (tfp.flash_prefill_plain(q, k, v, **kw).double()
              - truth).abs().max().item()
     assert err <= 2e-5 and err < err32, (err, err32)
+
+
+# ---------------------------------------------------------------------------
+# K5 chunk_prefill on the tensor-core tile kernel (flash_tile.cuh)
+
+CHUNK_STARTS = (0, 15, 16, 63, 64, 65)    # on and beside 16- and 64-key edges
+
+
+def _chunk_inputs(rs, B, Sq, G, K, hd, bs, dev, qdt, kvdt=torch.bfloat16,
+                  qk_scale=1.0, span=512):
+    """q (B, Sq, G*K, hd) and a pool of 1 + B * span / bs blocks, block 0
+    the pad block, each sequence's span / bs blocks shuffled over the
+    rest."""
+    maxblk = span // bs
+    nb = 1 + B * maxblk
+    q = _randn(rs, (B, Sq, G * K, hd), dev, torch.float32) * qk_scale
+    kp = _randn(rs, (nb, bs, K, hd), dev, torch.float32) * qk_scale
+    vp = _randn(rs, (nb, bs, K, hd), dev, torch.float32)
+    t = rs.permutation(np.arange(1, nb)).reshape(B, maxblk)
+    return (q.to(qdt), kp.to(kvdt), vp.to(kvdt),
+            torch.tensor(t, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 8, 16])
+@pytest.mark.parametrize("bs", [16, 32])
+def test_chunk_prefill_tc_matches_plain(cuda, qdt, hd, G, bs):
+    """K5 at group sizes 1-16 (128 / G chunk positions per CTA), ragged
+    chunks (Sq 1, 17, 64, 128) at starts on and beside the 16- and 64-key
+    edges and at the end of a 512-key span, over a shuffled pool with
+    blocks of 16 or 32, against its plain version."""
+    rs = np.random.RandomState(80 + G + hd + bs)
+    for Sq in (1, 17, 64, 128):
+        q, kp, vp, t = _chunk_inputs(rs, 7, Sq, G, 2, hd, bs, cuda, qdt)
+        start = torch.tensor(CHUNK_STARTS + (512 - Sq,), dtype=torch.int32,
+                             device=cuda)
+        _launch_and_compare(tcp.chunk_prefill_attention,
+                            tcp.chunk_prefill_attention_plain,
+                            (q, kp, vp, t, start), {},
+                            2e-5 if qdt == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_chunk_prefill_tc_window_softcap(cuda, qdt, hd):
+    """A window that empties the long rows' leading tiles, and a softcap,
+    at G = 8 and a ragged Sq."""
+    q, kp, vp, t = _chunk_inputs(np.random.RandomState(90 + hd), 4, 100, 8,
+                                 2, hd, 16, cuda, qdt)
+    start = torch.tensor([0, 37, 150, 400], dtype=torch.int32, device=cuda)
+    _launch_and_compare(tcp.chunk_prefill_attention,
+                        tcp.chunk_prefill_attention_plain,
+                        (q, kp, vp, t, start), dict(window=100, cap=50.0),
+                        2e-5 if qdt == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_chunk_prefill_fp32_pool(cuda, qdt, hd):
+    """fp32 pools (dispatched, stored by no engine) take the CUDA-core body
+    and meet the same tolerances."""
+    q, kp, vp, t = _chunk_inputs(np.random.RandomState(95 + hd), 3, 70, 4,
+                                 2, hd, 16, cuda, qdt, kvdt=torch.float32,
+                                 span=256)
+    start = torch.tensor([0, 41, 186], dtype=torch.int32, device=cuda)
+    _launch_and_compare(tcp.chunk_prefill_attention,
+                        tcp.chunk_prefill_attention_plain,
+                        (q, kp, vp, t, start), {},
+                        2e-5 if qdt == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_chunk_prefill_tc_at_three_times_scale(cuda, hd):
+    """q, k ~ 3 N(0, 1), as for K1: the kernel is held to 2e-5 of the plain
+    version evaluated in float64, and must be closer to it than the fp32
+    plain version is."""
+    q, kp, vp, t = _chunk_inputs(np.random.RandomState(100 + hd), 4, 128, 8,
+                                 4, hd, 16, cuda, torch.float32,
+                                 qk_scale=3.0)
+    start = torch.tensor([0, 37, 100, 200], dtype=torch.int32, device=cuda)
+    n0 = tcp.chunk_prefill_attention.launches
+    o = tcp.chunk_prefill_attention(q, kp, vp, t, start)
+    torch.cuda.synchronize()
+    assert tcp.chunk_prefill_attention.launches == n0 + 1
+    truth = tcp.chunk_prefill_attention_plain(q.double(), kp.double(),
+                                              vp.double(), t, start)
+    err = (o.double() - truth).abs().max().item()
+    err32 = (tcp.chunk_prefill_attention_plain(q, kp, vp, t, start).double()
+             - truth).abs().max().item()
+    assert err <= 2e-5 and err < err32, (err, err32)
+
+
+def test_tile_kernels_in_a_cuda_graph(cuda):
+    """K5 and K1 (one tile kernel, two addressing types) captured in one
+    CUDA graph, then replayed after q, the chunk starts, the block table
+    and the prefixes are rewritten in place: each replay equals an eager
+    call on the new inputs bit for bit."""
+    rs = np.random.RandomState(110)
+    q, kp, vp, t = _chunk_inputs(rs, 4, 128, 8, 4, 64, 16, cuda,
+                                 torch.float32)
+    start = torch.tensor([0, 37, 100, 200], dtype=torch.int32, device=cuda)
+    q1 = _randn(rs, (4, 64, 32, 64), cuda, torch.float32)
+    k1 = _randn(rs, (4, 512, 4, 64), cuda, torch.bfloat16)
+    v1 = _randn(rs, (4, 512, 4, 64), cuda, torch.bfloat16)
+    pre = torch.tensor([0, 37, 100, 200], dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # build, attributes, allocator
+        tcp.chunk_prefill_attention(q, kp, vp, t, start)
+        tfp.flash_prefill(q1, k1, v1, prefix_len=pre)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o5 = tcp.chunk_prefill_attention(q, kp, vp, t, start)
+        o1 = tfp.flash_prefill(q1, k1, v1, prefix_len=pre)
+    for new_start, new_pre in (([384, 1, 64, 250], [448, 0, 65, 300]),
+                               ([16, 300, 0, 63], [1, 200, 447, 63])):
+        q.copy_(_randn(rs, tuple(q.shape), cuda, torch.float32))
+        q1.copy_(_randn(rs, tuple(q1.shape), cuda, torch.float32))
+        t.copy_(t[torch.randperm(4, device=cuda)])
+        start.copy_(torch.tensor(new_start, dtype=torch.int32))
+        pre.copy_(torch.tensor(new_pre, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(o5, tcp.chunk_prefill_attention(q, kp, vp, t,
+                                                           start))
+        assert torch.equal(o1, tfp.flash_prefill(q1, k1, v1,
+                                                 prefix_len=pre))
+
+
+# ---------------------------------------------------------------------------
+# K6 rwkv6_scan as a column-split recurrence
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("S", [1, 2, 31, 32, 33, 63, 64, 65, 512])
+def test_rwkv6_scan_colsplit_matches_plain(cuda, dtype, hd, S):
+    """K6 at lengths on and beside its 16-step chunk edges (the decode
+    kernel at S = 1), y and the final state against the plain
+    version; tolerances as in test_rwkv6_scan_matches_plain."""
+    xs = _scan_inputs(np.random.RandomState(S * 3 + hd), 2, S, 3, hd, cuda,
+                      dtype)
+    n0 = tscan.rwkv6_scan.launches
+    y, st = tscan.rwkv6_scan(*xs)
+    torch.cuda.synchronize()
+    assert tscan.rwkv6_scan.launches == n0 + 1
+    y_plain, st_plain = tscan.rwkv6_scan_plain(*xs)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y, y_plain, rtol=tol, atol=tol)
+    torch.testing.assert_close(st, st_plain, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+def test_rwkv6_scan_aliased_carry_equals_one_call(cuda, hd):
+    """A prefill in two chunks (37 + 27 steps) then 5 decode steps, each
+    writing its state over state0 (the engine's in-place cache), equal one
+    69-step call within 1e-4."""
+    xs = _scan_inputs(np.random.RandomState(120 + hd), 2, 69, 4, hd, cuda,
+                      torch.float32)
+    y_one, s_one = tscan.rwkv6_scan(*xs)
+    state = xs[5].clone()
+    ys = []
+    for lo, hi in [(0, 37), (37, 64)] + [(64 + i, 65 + i) for i in range(5)]:
+        y, s = tscan.rwkv6_scan(*[a[:, lo:hi].contiguous() for a in xs[:4]],
+                                xs[4], state, out_state=state)
+        assert s is state
+        ys.append(y)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat(ys, 1), y_one, rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(state, s_one, rtol=1e-4, atol=1e-4)
+
+
+def test_rwkv6_scan_in_a_cuda_graph(cuda):
+    """A 40-step prefill and a decode step of K6, both updating one state
+    in place, captured in a CUDA graph, then replayed after every input
+    and the state are rewritten in place: each replay equals eager
+    execution on the same inputs bit for bit."""
+    rs = np.random.RandomState(130)
+    pre = _scan_inputs(rs, 4, 40, 40, 64, cuda, torch.float32)
+    dec = _scan_inputs(rs, 4, 1, 40, 64, cuda, torch.float32)
+    u, state = pre[4], pre[5]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # build, allocator
+        tscan.rwkv6_scan(*pre[:4], u, state.clone())
+        tscan.rwkv6_scan(*dec[:4], u, state.clone())
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_pre, _ = tscan.rwkv6_scan(*pre[:4], u, state, out_state=state)
+        y_dec, _ = tscan.rwkv6_scan(*dec[:4], u, state, out_state=state)
+    for seed in (131, 132):
+        new = _scan_inputs(np.random.RandomState(seed), 4, 41, 40, 64, cuda,
+                           torch.float32)
+        for a, b in zip(pre[:4], new[:4]):
+            a.copy_(b[:, :40])
+        for a, b in zip(dec[:4], new[:4]):
+            a.copy_(b[:, 40:])
+        u.copy_(new[4])
+        state.copy_(new[5])
+        graph.replay()
+        torch.cuda.synchronize()
+        s = new[5].clone()
+        want_pre, _ = tscan.rwkv6_scan(*pre[:4], u, s, out_state=s)
+        want_dec, _ = tscan.rwkv6_scan(*dec[:4], u, s, out_state=s)
+        assert torch.equal(y_pre, want_pre)
+        assert torch.equal(y_dec, want_dec)
+        assert torch.equal(state, s)

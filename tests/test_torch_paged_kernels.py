@@ -2,7 +2,8 @@
 paged_decode_attention, K5 chunk_prefill_attention): their plain PyTorch
 versions against the reference's pure-jnp oracles and its Pallas kernels
 in interpret mode, on the same numpy-seeded inputs (shapes of
-tests/test_kernels.py), at its tolerances; the paged GQA layer against
+tests/test_kernels.py), at its tolerances; K5's tensor-core arithmetic
+(chunk_prefill_split_plain) against the same; the paged GQA layer against
 the reference's gather path; and paged_write's out-of-table drop. (The
 hand-written CUDA kernels against these plain versions:
 tests/test_torch_cuda.py.)"""
@@ -229,6 +230,82 @@ def test_chunk_prefill_plain_two_chunks_equal_one_shot():
     part2 = tcp.chunk_prefill_attention(tq[:, 64:], tk, tv, ttables, 64)
     np.testing.assert_allclose(_np(one[:, 64:]), _np(part2),
                                **TOL["float32"])
+
+
+# ---------------------------------------------------------------------------
+# K5's tensor-core arithmetic: chunk_prefill_split_plain (q and P in three
+# bf16 pieces, 64-key tiles over the gathered view)
+
+def _bf16_pools(seed, shapes, dtype):
+    """As _inputs, with the pools rounded to bf16 values (the engines'
+    cache dtype: exact tensor-core operands)."""
+    rs = np.random.RandomState(seed)
+    xs = [rs.standard_normal(s).astype(np.float32) for s in shapes]
+    xs[1:] = [torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+              for x in xs[1:]]
+    return ([jnp.asarray(x, JDT[dtype]) for x in xs],
+            [torch.from_numpy(x).to(TDT[dtype]) for x in xs])
+
+
+@pytest.mark.parametrize("B,Sq,H,K,hd,nb,bs,maxblk,starts", [
+    (2, 64, 4, 2, 64, 24, 16, 8, (37, 0)),     # GQA, mid-block + zero start
+    (1, 32, 8, 1, 128, 12, 32, 4, (64,)),      # MQA, start at block boundary
+    (3, 16, 4, 4, 64, 40, 8, 12, (5, 48, 79)),  # MHA, tiny blocks
+    (2, 128, 4, 2, 64, 24, 16, 12, (16, 33)),  # chunk > block, q tiled
+    (2, 17, 8, 2, 64, 24, 16, 8, (63, 15)),    # ragged chunk beside edges
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunk_split_plain_matches_reference(B, Sq, H, K, hd, nb, bs,
+                                             maxblk, starts, dtype):
+    (q, kp, vp), (tq, tk, tv) = _bf16_pools(
+        25, [(B, Sq, H, hd), (nb, bs, K, hd), (nb, bs, K, hd)], dtype)
+    tables, ttables = _ints(
+        (np.arange(B * maxblk).reshape(B, maxblk) % (nb - 1)) + 1)
+    start, tstart = _ints(starts)
+    o = tcp.chunk_prefill_split_plain(tq, tk, tv, ttables, tstart)
+    assert o.dtype == TDT[dtype] and o.shape == (B, Sq, H, hd)
+    _check(o, ref.chunk_prefill_attention_ref(q, kp, vp, tables, start),
+           ops.chunk_prefill_attention(q, kp, vp, tables, start, bq=32,
+                                       interpret=True), dtype)
+
+
+@pytest.mark.parametrize("window,cap", [(24, None), (None, 30.0),
+                                        (40, 50.0)])
+def test_chunk_split_plain_window_softcap(window, cap):
+    B, Sq, H, K, hd, nb, bs, maxblk = 2, 64, 4, 2, 64, 24, 16, 8
+    (q, kp, vp), (tq, tk, tv) = _bf16_pools(
+        26, [(B, Sq, H, hd), (nb, bs, K, hd), (nb, bs, K, hd)], "float32")
+    tables, ttables = _ints(_perm_tables(27, B, maxblk, nb))
+    start, tstart = _ints([41, 8])
+    kw = dict(window=window, cap=cap)
+    o = tcp.chunk_prefill_split_plain(tq, tk, tv, ttables, tstart, **kw)
+    _check(o, ref.chunk_prefill_attention_ref(q, kp, vp, tables, start,
+                                              **kw),
+           ops.chunk_prefill_attention(q, kp, vp, tables, start, bq=32,
+                                       interpret=True, **kw), "float32")
+
+
+def test_verify_plain_computes_in_float64_for_float64_inputs():
+    """K3's and K5's plain version is the float64 referee of the CUDA tests
+    at large scores: float64 inputs are computed in float64 (not rounded
+    through float32), float32 inputs as before."""
+    B, Sq, H, K, hd, nb, bs, maxblk = 2, 8, 4, 2, 64, 16, 16, 8
+    _, (tq, tk, tv) = _bf16_pools(
+        28, [(B, Sq, H, hd), (nb, bs, K, hd), (nb, bs, K, hd)], "float32")
+    tq = tq * 3.0
+    _, ttables = _ints(_perm_tables(29, B, maxblk, nb))
+    _, tlength = _ints([40, 128])
+    o32 = tpa.verify_attention_plain(tq, tk, tv, ttables, tlength)
+    o64 = tpa.verify_attention_plain(tq.double(), tk.double(), tv.double(),
+                                     ttables, tlength)
+    assert o32.dtype == torch.float32 and o64.dtype == torch.float64
+    np.testing.assert_allclose(o64.numpy(), o32.double().numpy(),
+                               **TOL["float32"])
+    assert not torch.equal(o64, o32.double())
+    c64 = tcp.chunk_prefill_attention_plain(tq.double(), tk.double(),
+                                            tv.double(), ttables,
+                                            tlength - Sq)
+    assert torch.equal(c64, o64)
 
 
 # ---------------------------------------------------------------------------

@@ -106,6 +106,32 @@ def test_scan_plain_matches_reference_and_pallas(B, S, H, hd, chunk, dtype):
         _close(got, want, **SCAN_TOL)
 
 
+@pytest.mark.parametrize("B,S,H,hd,chunk,dtype", [
+    (1, 64, 2, 32, 16, "float32"), (2, 128, 4, 64, 64, "float32"),
+    (1, 96, 3, 64, 32, "float32"),
+    (2, 1, 4, 64, 64, "float32"),              # one decode step
+    (2, 48, 2, 32, 16, "bfloat16"),            # bf16 r, k, v, w
+])
+def test_scan_split_plain_matches_reference_and_pallas(B, S, H, hd, chunk,
+                                                       dtype):
+    """The CUDA kernel's order of summation (8 row-group partials per
+    column, the bonus term once per step), mirrored on the CPU, against
+    the reference's oracle and its Pallas kernel at 1e-4."""
+    xs = _scan_inputs(B * 100 + S + 1, B, S, H, hd)
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    jx = [jnp.asarray(a, jdt) for a in xs[:4]] + \
+        [jnp.asarray(a) for a in xs[4:]]
+    tx = [torch.from_numpy(a).to(tdt) for a in xs[:4]] + \
+        [torch.from_numpy(a) for a in xs[4:]]
+    y_ref, s_ref = ref.rwkv6_scan_ref(*jx)
+    y_pl, s_pl = ops.rwkv6_scan(*jx, chunk=chunk, interpret=True)
+    y, st = tscan.rwkv6_scan_split_plain(*tx)
+    assert y.dtype == torch.float32 and tuple(y.shape) == (B, S, H, hd)
+    for got, want in ((y, y_ref), (y, y_pl), (st, s_ref), (st, s_pl)):
+        _close(got, want, rtol=1e-4, atol=1e-4)
+
+
 def test_scan_state_carry():
     """Two halves with the state carried == one scan (the property the
     engine's partial prefill relies on), on both packages."""
