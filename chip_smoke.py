@@ -36,6 +36,21 @@ Phases, in order; any failure exits non-zero:
      against CPU (prefill 100, 8 decode steps, a two-chunk prefill); then
      naive-RAG under Teola with the full 32-layer RWKV-6 3B as the core
      LLM on the dense path; 1 warm-up query, then 4 together.
+  8. apps: every app of core/apps.py under every scheme of serve.py's
+     SCHEMES, the 22-layer TinyLlama-1.1B as the core LLM on the dense
+     path: advanced-RAG, search-gen and contextual retrieval under Teola
+     measured as in phase 5; each baseline a warm-up and one query per app
+     (LlamaDistPC last); every answer non-empty, naive- and advanced-RAG's
+     chunks naming the question's topic.
+  9. layers: the serving layers through the serve entry point's functions
+     (build_parser, validate_args, make_engines, serve) with the same
+     core: (a) two replicas with streaming, (b) SLO scheduling and a
+     preemption replayed token-identically, (c) a crash of core-LLM
+     replica 1 and its recovery, (d) disaggregated prefill/decode with KV
+     migration, (e) overload control shedding part of a burst; every paged
+     pool audits clean after release.
+ 10. exit: ``python -m repro_torch.launch.serve`` in a process of its own
+     serves one query and exits with 0.
 
 After each serve window one more query runs under torch.profiler: the
 card's busy share and, per hand-written kernel wrapper, the device time
@@ -84,8 +99,11 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.bridge import tree_to  # noqa: E402
 from repro_torch.configs.base import Stage, get_config  # noqa: E402
-from repro_torch.core.apps import build_engines, naive_rag  # noqa: E402
+from repro_torch.core.apps import ALL_APPS, build_engines, naive_rag  # noqa: E402,E501
+from repro_torch.core.engine_pool import replicas_of  # noqa: E402
 from repro_torch.core.teola import Teola  # noqa: E402
+from repro_torch.engines.encoder_engines import (  # noqa: E402
+    EmbeddingEngine, RerankEngine)
 from repro_torch.engines.llm_engine import LLMEngine  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.chunk_prefill import (  # noqa: E402
@@ -99,6 +117,7 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     verify_attention, verify_attention_plain)
 from repro_torch.kernels.rwkv6_scan import (rwkv6_scan,  # noqa: E402
                                             rwkv6_scan_plain)
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models.transformer import apply_model, init_params  # noqa: E402
 from repro_torch.serving import kv_cache as kvc  # noqa: E402
 from repro_torch.training.data import doc_corpus  # noqa: E402
@@ -857,7 +876,8 @@ def _check_answers(ctxs) -> list:
 
 
 def _layers(engines) -> int:
-    return sum(st.repeat for st in engines["core_llm"].cfg.stages)
+    core = replicas_of(engines["core_llm"])[0]
+    return sum(st.repeat for st in core.cfg.stages)
 
 
 def _print_window(tag, warm, wall, ctxs, dec, busy, launches, card):
@@ -1154,6 +1174,399 @@ def phase_rwkv_model(dev):
                              f"finite {finite}")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: every app under every scheme ([apps])
+
+TINYLLAMA = "tinyllama-1.1b"
+ALL_SCHEMES = list(serve_cli.SCHEMES)
+BASELINES = ["LlamaDist-PO", "LlamaDist-TO", "AutoGen-TO", "LlamaDistPC-TO"]
+DENSE = (flash_prefill, decode_attention)
+PAGED_NO_SPEC = (paged_decode_attention, chunk_prefill_attention)
+
+
+def _card_engines(dev, **opts):
+    """``build_engines`` on the card with TinyLlama-1.1B (22 layers, random
+    fp32 weights from SEED) as the core LLM; the lite LLM stays the
+    repo's tiny-lite-llm. The encoders hold the weights their seed draws
+    on the CPU generator, moved to the card: the CPU tests' encoders, so
+    that the retrieval checks hold the card to the path those tests
+    check (random encoders rank chunks by chance, and another draw can
+    miss the question's topic)."""
+    engines = build_engines(device=dev, **opts)
+    engines["core_llm"] = LLMEngine(
+        "core_llm", get_config(TINYLLAMA), seed=SEED, max_batch=4,
+        device=dev, paged=opts.get("paged_kv", False),
+        chunked_prefill=opts.get("chunked_prefill", False),
+        prefill_chunk=opts.get("prefill_chunk", 128),
+        prefix_cache=opts.get("prefix_cache", "none"))
+    for name, cls in (("embedding", EmbeddingEngine),
+                      ("rerank", RerankEngine)):
+        engines[name].params = tree_to(cls(device="cpu").params, dev)
+    return engines
+
+
+def _texts(v) -> list:
+    return [c.get("text", "") if isinstance(c, dict) else c
+            for c in (v if isinstance(v, list) else [])]
+
+
+def _topic_hit(app: str, ctx, question: str) -> None:
+    """naive-RAG and advanced-RAG: the chunks handed to synthesis name
+    the question's topic (tests/test_runtime_e2e.py's check)."""
+    if app not in ("naive_rag", "advanced_rag"):
+        return
+    key = "retrieved" if app == "naive_rag" else "top_chunks"
+    topic = question.split()[-1]
+    if topic not in " ".join(_texts(ctx.store.get(key))):
+        raise AssertionError(f"{app} {ctx.qid}: {key} misses {topic!r}")
+
+
+def _summary(ctx) -> tuple:
+    return (ctx.store.get("answer"),
+            tuple(_texts(ctx.store.get("top_chunks")
+                         or ctx.store.get("retrieved")
+                         or ctx.store.get("web_results"))))
+
+
+def _ctx_signature(ctx) -> str:
+    chunks = ctx.store.get("ctx_chunks")
+    top = _texts(ctx.store.get("top_chunks"))
+    n_none = sum(c is None for c in chunks) if isinstance(chunks, list) \
+        else "no list"
+    return (f"ctx_chunks {n_none} of {len(chunks or [])} None, "
+            f"{sum(1 for t in top if t)} of {len(top)} retrieved texts "
+            f"non-empty")
+
+
+def phase_apps(dev, card: str):
+    """Every app under every scheme of serve.SCHEMES on the card. Under
+    Teola, advanced-RAG, search-gen and contextual retrieval each get
+    phase 5's measurement (a warm-up query, 4 questions together, a
+    profiled query); naive-RAG under Teola is phase 5 itself. Each
+    baseline gets a warm-up and one query per app, LlamaDistPC last (it
+    turns the engines' prefix cache on for good)."""
+    torch.cuda.reset_peak_memory_stats()
+    engines = _card_engines(dev)
+    docs = doc_corpus(2)
+    teola_first, peak = {}, 0
+    for app in ("advanced_rag", "search_gen", "contextual_retrieval"):
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        print(f"[apps] {app} under Teola: core_llm {TINYLLAMA}, "
+              f"{_layers(engines)} layers, dense KV; decode tokens counted "
+              f"over core_llm and lite_llm")
+        teola = Teola(ALL_APPS[app](engines), engines)
+        try:
+            for fn in DENSE:
+                fn.launches = 0
+            warm, _ = _warm_up(teola, docs)
+            dec0 = _decoded(engines)
+            busy0 = _busy(engines)
+            wall, ctxs = _run_window(teola, docs)
+            launches = {fn.__name__: fn.launches for fn in DENSE}
+            busy = {k: v - busy0[k] for k, v in _busy(engines).items()}
+            dec = _decoded(engines) - dec0
+            _profiled_query(teola, docs, card, DENSE)
+        finally:
+            teola.shutdown()
+        _check_answers(ctxs)
+        for c, q in zip(ctxs, QUESTIONS):
+            _topic_hit(app, c, q)
+        _print_window(f"apps {app}", warm, wall, ctxs, dec, busy, launches,
+                      card)
+        teola_first[app] = ctxs[0]
+    for name in BASELINES:
+        cls, policy = serve_cli.SCHEMES[name]
+        for app in ALL_APPS:
+            for fn in DENSE:
+                fn.launches = 0
+            orch = cls(ALL_APPS[app](engines), engines, policy=policy)
+            try:
+                t0 = time.time()
+                _, wctx = orch.query({"question": "what is fact 1 about "
+                                      "optics", "docs": docs}, timeout=600)
+                warm = time.time() - t0
+                t0 = time.time()
+                _, ctx = orch.query({"question": QUESTIONS[0],
+                                     "docs": docs}, timeout=600)
+                lat = time.time() - t0
+            finally:
+                orch.shutdown()
+            _check_answers([wctx, ctx])
+            _topic_hit(app, ctx, QUESTIONS[0])
+            launches = {fn.__name__: fn.launches for fn in DENSE}
+            same = "" if app not in teola_first else (
+                f"; retrieved set and answer equal Teola's: "
+                f"{_summary(ctx) == _summary(teola_first[app])} (printed "
+                f"only: batch shapes differ between schemes)")
+            sig = f"; {_ctx_signature(ctx)}" \
+                if app == "contextual_retrieval" else ""
+            print(f"[apps] {app} under {name}: warm-up {warm:.3f} s, query "
+                  f"{lat:.3f} s, answer {len(ctx.store['answer'].split())} "
+                  f"words, launches over the 2 queries " + ", ".join(
+                      f"{k} {n}" for k, n in launches.items())
+                  + f"{same}{sig} [{card}]")
+            for k, n in launches.items():
+                if n <= 0:
+                    raise AssertionError(f"{k} was not launched under "
+                                         f"{name} ({app})")
+    print(f"[apps] contextual_retrieval under Teola (ROADMAP Queue 3): "
+          f"{_ctx_signature(teola_first['contextual_retrieval'])}; the "
+          f"baselines' lines above hold the contextualized chunks")
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    print(f"[apps] {len(ALL_SCHEMES)} schemes x {len(ALL_APPS)} apps on the "
+          f"card; peak max_memory_allocated over the phase "
+          f"{peak / 2**30:.2f} GiB [{card}]")
+
+
+def _decoded(engines) -> int:
+    return sum(inst.stats["decode_tokens"] for e in engines.values()
+               for inst in replicas_of(e) if "decode_tokens" in
+               getattr(inst, "stats", {}))
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the serving layers through the serve entry point ([layers])
+
+def _audit_pools(tag: str, engines) -> list:
+    """Every paged replica after release: a clean audit, 0 leaked blocks,
+    0 bad frees, and every block free but the radix tree's."""
+    rows = []
+    for e in engines.values():
+        for inst in replicas_of(e):
+            alloc = getattr(inst, "alloc", None)
+            if alloc is None:
+                continue
+            audit = alloc.audit()
+            held = inst.radix.num_blocks() if inst.radix is not None else 0
+            if not audit["ok"] or audit["leaked"] or audit["bad_free"] or \
+                    alloc.free_blocks() != alloc.capacity - held or \
+                    inst.states:
+                raise AssertionError(
+                    f"[{tag}] {inst.name}: pool not clean after release: "
+                    f"audit {audit}, {alloc.free_blocks()} free of "
+                    f"{alloc.capacity}, {held} radix-held, "
+                    f"{len(inst.states)} sequences resident")
+            rows.append(f"{inst.name} {alloc.free_blocks()}/"
+                        f"{alloc.capacity}")
+    print(f"[{tag}] pools after release, free of capacity (audit clean, 0 "
+          f"leaked, 0 bad frees): " + (", ".join(rows) or "no paged pool"))
+    return rows
+
+
+def _serve_case(tag, dev, card, argv, kernels):
+    """One [layers] case through the port's serve functions: the flags
+    parsed and validated by serve.py, the engines of ``_card_engines``
+    turned into the flags' engine dict by ``make_engines``, served by
+    ``serve``. Returns (orchestrator, contexts, engines)."""
+    ap = serve_cli.build_parser()
+    args = ap.parse_args(argv + ["--app", "naive_rag"])
+    serve_cli.validate_args(ap, args)
+    opts = dict(paged_kv=args.paged_kv, chunked_prefill=args.chunked_prefill,
+                prefill_chunk=args.prefill_chunk,
+                prefix_cache=args.prefix_cache)
+    engines = serve_cli.make_engines(
+        args, base=_card_engines(dev, **opts))
+    print(f"[{tag}] serve.py {' '.join(argv)} (core_llm {TINYLLAMA}, "
+          f"{_layers(engines)} layers)")
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    orch, ctxs = serve_cli.serve(args, engines)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    print(f"[{tag}] warm-up and {len(ctxs)} queries in {wall:.3f} s; "
+          f"launches " + ", ".join(f"{k} {n}" for k, n in launches.items())
+          + f"; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"[{tag}] {name} was not launched")
+    return orch, ctxs, engines
+
+
+def _all_done(tag, ctxs, allowed=()):
+    for c in ctxs:
+        if c.error is not None and not isinstance(c.error, allowed):
+            raise AssertionError(f"[{tag}] {c.qid} failed: {c.error!r}")
+        if c.error is None and not c.store.get("answer"):
+            raise AssertionError(f"[{tag}] {c.qid}: empty answer")
+
+
+def _engine_preemption(tag, core, card):
+    """tests/test_slo_sched.py's real-engine construction on the card: a
+    sequence decodes 4 steps, is preempted (its blocks freed), re-admitted
+    and replayed through the prefill kernel (K5), and finishes 6 steps
+    later with the tokens of an unpreempted run."""
+    from repro_torch.engines.decode_loop import DecodeSeq
+
+    def fresh(sid):
+        core.op_prefill([{"sid": sid, "text": "some moderately long "
+                          "prompt words here about optics"}])
+        seq = DecodeSeq(sid, core.states[sid], 10,
+                        text_fn=lambda q: core.tok.decode(q.tokens))
+        if not core.try_admit(seq):
+            raise AssertionError(f"[{tag}] {sid} not admitted")
+        core.note_slot_acquired(seq)
+        return seq
+
+    def drive(seq, iters):
+        for _ in range(iters):
+            before = len(seq.tokens)
+            core.decode_iteration([seq])
+            seq.steps += max(1, len(seq.tokens) - before)
+
+    base = fresh("base")
+    drive(base, 10)
+    core.note_slot_released(base)
+    core.release("base")
+    seq = fresh("pre")
+    drive(seq, 4)
+    free0 = core.alloc.free_blocks()
+    core.preempt_decode(seq)
+    freed = core.alloc.free_blocks() - free0
+    if not core.try_admit(seq):
+        raise AssertionError(f"[{tag}] preempted sequence not re-admitted")
+    core.note_slot_acquired(seq)
+    n5 = chunk_prefill_attention.launches
+    drive(seq, 6)
+    torch.cuda.synchronize()
+    replay = chunk_prefill_attention.launches - n5
+    core.note_slot_released(seq)
+    core.release("pre")
+    ok = seq.tokens == base.tokens
+    print(f"[{tag}] engine-level preemption (tests/test_slo_sched.py's "
+          f"construction): {freed} blocks freed, replay {replay} K5 "
+          f"launches, continuation token-identical: {ok} [{card}]")
+    if freed <= 0 or replay <= 0 or not ok:
+        raise AssertionError(f"[{tag}] preemption replay: freed {freed}, "
+                             f"K5 launches {replay}, identical {ok}")
+
+
+def phase_layers(dev, card: str):
+    """The serving layers through serve.py's functions on the card: (a)
+    two replicas with streaming, (b) SLO scheduling with preemption, (c)
+    a crash of core-LLM replica 1 and its recovery, (d) disaggregated
+    prefill/decode with KV migration, (e) overload control shedding a
+    burst. After each, every paged pool audits clean."""
+    # (a) both replicas serve
+    orch, ctxs, engines = _serve_case(
+        "layers a", dev, card, ["--llm-instances", "2", "--streaming",
+                                "--continuous-batching", "--queries", "4",
+                                "--rate", "50"], DENSE)
+    _all_done("layers a", ctxs)
+    per = {inst.name: inst.stats["decode_tokens"]
+           for inst in replicas_of(engines["core_llm"])}
+    print(f"[layers a] decode tokens per core_llm replica: {per}")
+    if len(per) != 2 or min(per.values()) <= 0:
+        raise AssertionError(f"[layers a] a replica did not serve: {per}")
+    del orch, engines
+    _free()
+
+    # (b) SLO scheduling: two tenants alternating classes, arrivals
+    # spread at 4 per second; the hard preemption check is the
+    # reference's real-engine construction, after the window
+    orch, ctxs, engines = _serve_case(
+        "layers b", dev, card, ["--continuous-batching", "--paged-kv",
+                                "--slo-sched", "--queries", "4",
+                                "--rate", "4"], PAGED_NO_SPEC)
+    _all_done("layers b", ctxs)
+    core = engines["core_llm"]
+    stats = core.tenant_stats()
+    served = sum(r.get("preempted", 0) for r in stats.values())
+    print(f"[layers b] preemptions in the served window: {served} "
+          f"(printed: they follow the arrival timing)")
+    _audit_pools("layers b", engines)
+    _engine_preemption("layers b", core, card)
+    _audit_pools("layers b", engines)
+    del orch, engines, core
+    _free()
+
+    # (c) a crash of core-LLM replica 1 at its 3rd decode call
+    orch, ctxs, engines = _serve_case(
+        "layers c", dev, card, ["--llm-instances", "2",
+                                "--continuous-batching", "--paged-kv",
+                                "--fault-inject",
+                                "crash:core_llm.r1:decode:3",
+                                "--queries", "4", "--rate", "50"],
+        PAGED_NO_SPEC)
+    _all_done("layers c", ctxs)
+    mgr = orch.runtime.scheds["core_llm"].ftmgr
+    kinds = [e[0] for e in mgr.events]
+    pool = engines["core_llm"]
+    dead = [i for i in range(len(pool)) if pool.health(i) == "dead"]
+    print(f"[layers c] recovery events: {kinds}; dead replicas "
+          f"{[pool[i].name for i in dead]}; reclaim "
+          f"{mgr.reclaim_reports}")
+    if dead != [1] or "retry" not in kinds or not mgr.reclaim_reports or \
+            not all(r["ok"] and r["leaked"] == 0
+                    for r in mgr.reclaim_reports):
+        raise AssertionError(f"[layers c] no clean recovery: {mgr.events}")
+    _audit_pools("layers c", engines)
+    del orch, engines, pool, mgr
+    _free()
+
+    # (d) disaggregated prefill/decode, 1 + 1
+    orch, ctxs, engines = _serve_case(
+        "layers d", dev, card, ["--paged-kv", "--continuous-batching",
+                                "--disaggregate", "--queries", "4",
+                                "--rate", "50"], PAGED_NO_SPEC)
+    _all_done("layers d", ctxs)
+    mig = {inst.name: (inst.stats["migrations_in"],
+                       inst.stats["migrated_blocks"],
+                       round(inst.stats["migrate_s"], 4))
+           for inst in replicas_of(engines["core_llm"])}
+    print(f"[layers d] core_llm migrations in / blocks / seconds per "
+          f"replica: {mig} [{card}]")
+    if sum(m[0] for m in mig.values()) <= 0:
+        raise AssertionError("[layers d] no sequence migrated")
+    _audit_pools("layers d", engines)
+    del orch, engines
+    _free()
+
+    # (e) overload control sheds a burst
+    from repro_torch.serving.overload import Overloaded
+    orch, ctxs, engines = _serve_case(
+        "layers e", dev, card, ["--continuous-batching", "--overload-control",
+                                "--query-deadline", "60",
+                                "--shed-queue-tokens", "64", "--queries",
+                                "4", "--rate", "100"], DENSE)
+    _all_done("layers e", ctxs, allowed=(Overloaded,))
+    shed = [c for c in ctxs if isinstance(c.error, Overloaded)]
+    print(f"[layers e] shed {len(shed)} of {len(ctxs)} with a structured "
+          f"Overloaded ({[c.error.reason for c in shed]}), "
+          f"{len(ctxs) - len(shed)} completed")
+    if not shed or len(shed) == len(ctxs):
+        raise AssertionError(f"[layers e] shed {len(shed)} of {len(ctxs)}")
+    del orch, engines
+    _free()
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_exit(card: str):
+    """The serve entry point in a process of its own on the card (its
+    tiny engines): one query, shutdown, and a clean interpreter exit."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--app",
+         "naive_rag", "--queries", "1"], capture_output=True, text=True,
+        timeout=300, env=env)
+    print(f"[exit] python -m repro_torch.launch.serve --app naive_rag "
+          f"--queries 1: rc {proc.returncode} in {time.time() - t0:.1f} s; "
+          + "; ".join(proc.stdout.strip().splitlines()) + f" [{card}]")
+    if proc.returncode != 0 or "terminate called" in proc.stderr or \
+            "[serve] 1/1 queries" not in proc.stdout:
+        raise AssertionError(f"serve process failed: rc {proc.returncode}"
+                             f"\n{proc.stderr[-2000:]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1187,6 +1600,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches.update(phase_serve(dev, card, RWKV, (rwkv6_scan,),
                                 "rwkv-serve")[0])
+    _free()
+    phase_apps(dev, card)
+    _free()
+    phase_layers(dev, card)
+    phase_exit(card)
     paged_src = "src/repro_torch/csrc/paged_attention.cu"
     sources = {"flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                                  "src/repro/kernels/flash_prefill.py:75"),

@@ -147,9 +147,14 @@ def _slo_tag(task, engine):
     class (critical-path slack from ``depth()``)."""
     if getattr(engine, "slo", None) is None:
         return None
-    raise NotImplementedError(
-        "SLO scheduling (serving/slo.py) is not ported yet "
-        "(ROADMAP.md Queue 1, item 8: serving-layer hooks)")
+    from repro_torch.serving.slo import derive_tag
+    ctx = task.ctx
+    return derive_tag(slo=getattr(ctx, "slo", None),
+                      priority=getattr(ctx, "priority", 0),
+                      tenant=getattr(ctx, "tenant", "default"),
+                      depth=task.prim.depth,
+                      t_submit=ctx.t_submit,
+                      deadline=getattr(ctx, "deadline", None))
 
 
 def rebuild_full_prompt(engine_name: str, ctx, sid: str):

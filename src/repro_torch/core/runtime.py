@@ -37,6 +37,16 @@ scheduler thread. Dependent pre-scheduling (§6, communication mitigation)
 is modeled by resolving payloads lazily at execution time from the shared
 object store, so a parent's output is visible to its pre-issued child
 without an extra scheduler round-trip.
+
+``Runtime.shutdown`` stops every thread the runtime drives — schedulers,
+replica workers, hedges, recovery threads, decode loops and the threads
+that dispatch early-released children — and joins each within one
+bounded deadline, naming any still alive in the exception that follows.
+A daemon thread left inside torch when the interpreter finalizes (a
+scheduler still releasing a query's KV tensors, say) is killed by
+CPython's ``pthread_exit`` while it waits for the GIL; the forced unwind
+through torch's ``noexcept`` C++ frames calls ``std::terminate`` and the
+process aborts.
 """
 from __future__ import annotations
 
@@ -213,6 +223,44 @@ def chunked_prefill_enabled(engine) -> bool:
         hasattr(engine, "submit_prefill")
 
 
+SHUTDOWN_JOIN_S = 60.0     # one deadline for every join of a shutdown
+
+
+class ThreadGroup:
+    """Short-lived threads an owner starts (hedges, early-release
+    dispatches, query chains), kept so that its shutdown can join them."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._threads: List[threading.Thread] = []
+
+    def start(self, target, args=(), name=None) -> threading.Thread:
+        th = threading.Thread(target=target, args=args, daemon=True,
+                              name=name)
+        with self._lock:
+            self._threads = [t for t in self._threads if t.is_alive()]
+            self._threads.append(th)
+        th.start()
+        return th
+
+    def threads(self) -> List[threading.Thread]:
+        with self._lock:
+            return list(self._threads)
+
+
+def join_threads(threads, deadline: float) -> List[str]:
+    """Join each thread until ``deadline`` (``time.monotonic``); return
+    the names of those still alive."""
+    alive = []
+    for th in threads:
+        if th is threading.current_thread():
+            continue
+        th.join(max(0.0, deadline - time.monotonic()))
+        if th.is_alive():
+            alive.append(th.name)
+    return alive
+
+
 class EngineScheduler(threading.Thread):
     """Lower-tier scheduler for a SINGLE engine instance.
 
@@ -228,7 +276,8 @@ class EngineScheduler(threading.Thread):
 
     def __init__(self, engine, executor, policy: str = "topo",
                  period: float = 0.002, continuous: bool = False):
-        super().__init__(daemon=True)
+        super().__init__(daemon=True,
+                         name=f"sched:{getattr(engine, 'name', '?')}")
         self.engine = engine
         self.executor = executor
         self.policy = policy
@@ -251,6 +300,10 @@ class EngineScheduler(threading.Thread):
         self.running = False
         with self.cv:
             self.cv.notify()
+
+    def threads(self) -> List[threading.Thread]:
+        """The threads ``stop`` ends, for the runtime to join."""
+        return [self]
 
     def _form_batch(self) -> List[NodeTask]:
         max_bs = getattr(self.engine, "max_batch", 8)
@@ -302,7 +355,8 @@ class _ReplicaWorker(threading.Thread):
     in-flight token ledger around each execution."""
 
     def __init__(self, sched: "PooledEngineScheduler", idx: int):
-        super().__init__(daemon=True)
+        name = getattr(sched.pool[idx], "name", idx)
+        super().__init__(daemon=True, name=f"worker:{name}")
         self.sched = sched
         self.idx = idx
         self.engine = sched.pool[idx]
@@ -367,7 +421,8 @@ class PooledEngineScheduler(threading.Thread):
     def __init__(self, pool: EnginePool, executor, policy: str = "topo",
                  period: float = 0.002, continuous: bool = False,
                  fault_tolerance=None, overload=None):
-        super().__init__(daemon=True)
+        super().__init__(daemon=True,
+                         name=f"sched:{getattr(pool, 'name', '?')}")
         self.pool = pool
         self.engine = pool[0]          # profile source (max_batch, kind)
         self.executor = executor
@@ -383,8 +438,12 @@ class PooledEngineScheduler(threading.Thread):
         # health marking, block reclamation, watchdog hang/deadline
         # detection and per-task recovery handles. None (the default)
         # leaves every dispatch path byte-identical.
-        _reject_serving_layers(fault_tolerance, overload)
         self.ftmgr = None
+        if fault_tolerance is not None and \
+                hasattr(pool[0], "submit_decode"):
+            from repro_torch.serving.faults import RecoveryManager
+            self.ftmgr = RecoveryManager(self, fault_tolerance)
+            self.ftmgr.start()
         # disaggregated prefill/decode dispatch: prefill ops see only the
         # prefill-specialist replicas, decodes only the decode side (with
         # a KV migration when the sequence was prefilled elsewhere). For
@@ -411,6 +470,7 @@ class PooledEngineScheduler(threading.Thread):
         self.routes = []               # (replica_idx, op, n_requests, tokens)
         self.affinity: Dict[tuple, int] = {}
         self._aff_lock = threading.Lock()
+        self.hedges = ThreadGroup()    # backup dispatches still running
         self.workers = [_ReplicaWorker(self, i) for i in range(len(pool))]
         for w in self.workers:
             w.start()
@@ -428,6 +488,13 @@ class PooledEngineScheduler(threading.Thread):
             self.cv.notify()
         for w in self.workers:
             w.q.put(None)
+
+    def threads(self) -> List[threading.Thread]:
+        """The threads ``stop`` ends, for the runtime to join."""
+        out = [self] + self.workers + self.hedges.threads()
+        if self.ftmgr is not None:
+            out += self.ftmgr.threads()
+        return out
 
     def _pf_idx(self):
         return self.pool.route_prefill_indices() if self.disagg else None
@@ -732,9 +799,8 @@ class PooledEngineScheduler(threading.Thread):
             ov.hedge.note_win()
             _fire()
 
-        th = threading.Thread(target=_backup, daemon=True,
-                              name=f"hedge:{batch[0].ctx.qid}:{op}")
-        th.start()
+        th = self.hedges.start(_backup,
+                               name=f"hedge:{batch[0].ctx.qid}:{op}")
         t0 = time.time()
         try:
             self.executor(worker.engine, batch)
@@ -793,10 +859,8 @@ class PooledEngineScheduler(threading.Thread):
         """Structured terminal error for a batch-path failure when fault
         tolerance is on (parity with ``TaskRecovery.wrap`` — a request
         must never fail with a bare replica exception)."""
-        if self.ftmgr is None:
-            return err
         from repro_torch.serving.faults import RequestError
-        if isinstance(err, RequestError):
+        if self.ftmgr is None or isinstance(err, RequestError):
             return err
         rep = self.pool[worker.idx]
         t = batch[0]
@@ -847,16 +911,6 @@ def stream_eligible(prim: Primitive) -> bool:
             and prim.config.get("stream", True))
 
 
-def _reject_serving_layers(fault_tolerance, overload):
-    """The serving layers behind these options (serving/faults.py and
-    serving/overload.py) are not ported yet; refuse them up front rather
-    than fail later on a missing import."""
-    if fault_tolerance is not None or overload is not None:
-        raise NotImplementedError(
-            "fault_tolerance / overload are not ported yet "
-            "(ROADMAP.md Queue 1, item 8: serving-layer hooks)")
-
-
 class Runtime:
     """Graph scheduler + one lower-tier scheduler per engine pool.
     An engines-dict value may be a bare engine, an EnginePool, or a
@@ -872,7 +926,6 @@ class Runtime:
                  continuous_batching: bool = False,
                  fault_tolerance=None, overload=None):
         from repro_torch.core.executors import execute_batch
-        _reject_serving_layers(fault_tolerance, overload)
         self.engines = engines
         self.policy = policy
         self.streaming = streaming
@@ -906,6 +959,9 @@ class Runtime:
             self.scheds[name] = s
         self.queries: List[QueryContext] = []
         self._lock = threading.Lock()
+        # threads started on behalf of queries (early-release dispatches
+        # here, module-chain runs of the baselines), joined at shutdown
+        self.aux = ThreadGroup()
 
     def submit(self, graph: Graph, inputs: Dict[str, Any],
                output_key: str = "answer", priority: int = 0,
@@ -973,8 +1029,8 @@ class Runtime:
                 if ctx.indegree[cpid] == 0:
                     ready.append(ctx.graph.nodes[cpid])
         for n in ready:
-            threading.Thread(target=self._dispatch, args=(n, ctx),
-                             daemon=True).start()
+            self.aux.start(self._dispatch, (n, ctx),
+                           name=f"dispatch:{ctx.qid}:{n.pid}")
 
     def _run_control(self, prim: Primitive, ctx: QueryContext):
         from repro_torch.core.executors import run_control
@@ -1028,9 +1084,40 @@ class Runtime:
                 s.forget(ctx.qid)
 
     def shutdown(self):
+        """Stop the schedulers, then the replicas' decode loops (a
+        scheduler may still start one), and join every thread either
+        started, within ``SHUTDOWN_JOIN_S`` in all; raise RuntimeError
+        naming each thread still alive after it."""
+        deadline = time.monotonic() + SHUTDOWN_JOIN_S
         for s in self.scheds.values():
             s.stop()
+        joined: set = set()
+        alive: List[str] = []
+
+        def join_new():
+            # a joined thread may have started more (a hedge, a retry, an
+            # early-release dispatch): repeat until nothing new appears
+            while True:
+                new = [t for s in self.scheds.values() for t in s.threads()]
+                new = [t for t in new + self.aux.threads()
+                       if t not in joined]
+                if not new:
+                    return
+                joined.update(new)
+                alive.extend(join_threads(new, deadline))
+
+        join_new()
+        loops = []
         for eng in self.engines.values():
             for inst in replicas_of(eng):
                 if hasattr(inst, "stop_decode_loop"):
+                    loop = inst._decode_loop
                     inst.stop_decode_loop()
+                    if loop is not None:
+                        loops.append(loop)
+        alive.extend(join_threads(loops, deadline))
+        join_new()
+        if alive:
+            raise RuntimeError(f"shutdown: {len(alive)} thread(s) still "
+                               f"alive after {SHUTDOWN_JOIN_S:.0f} s: "
+                               f"{alive}")

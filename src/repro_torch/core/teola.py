@@ -113,8 +113,9 @@ class _ModuleChain:
         inputs = {k: v for k, v in query.items() if k != "id"}
         ctx = QueryContext(g, inputs)
         ctx.indegree = {pid: len(n.parents) for pid, n in g.nodes.items()}
-        t = threading.Thread(target=self._run, args=(g, ctx), daemon=True)
-        t.start()
+        # the runtime's shutdown joins this thread (it releases the
+        # query's sequences after marking it done)
+        self.runtime.aux.start(self._run, (g, ctx), name=f"chain:{ctx.qid}")
         return ctx
 
     def _run(self, g: Graph, ctx: QueryContext):

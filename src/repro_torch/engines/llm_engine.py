@@ -32,10 +32,12 @@ in the dense cache and is stacked, forked and unstacked like K/V), on
 CUDA; through their plain versions on the CPU. Every forward runs under
 ``torch.inference_mode()``.
 
-The serving-layer hooks — SLO scheduling (``attach_slo``, preemption),
-fault recovery (``recover_decode``) and disaggregation (``export_seq`` /
-``import_seq``) — are not ported yet and raise ``NotImplementedError``
-(ROADMAP.md Queue 1, item 8).
+The serving-layer hooks are the reference's: SLO scheduling (a policy
+armed by ``serving/slo.py::attach_slo``; preemption frees a sequence's KV
+and replays it through the same prefill kernels on re-admission), fault
+injection (``_fault``) and recovery (``recover_decode``), and
+disaggregation (``export_seq`` / ``import_seq``, which move paged KV
+blocks between replicas' pools with in-place index copies).
 """
 from __future__ import annotations
 
@@ -83,11 +85,6 @@ class PagedSeqState:
     table: List[int] = field(default_factory=list)
     pos: int = 0
     last_token: int = 1         # BOS
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                              f"Queue 1, item 8: serving-layer hooks)")
 
 
 class LLMEngine(DecodeLoopMixin):
@@ -189,18 +186,29 @@ class LLMEngine(DecodeLoopMixin):
 
     def _init_replica_state(self):
         self.stats = {"prefill_tokens": 0, "decode_tokens": 0, "calls": 0,
-                      "decode_iters": 0, "busy_s": 0.0}
+                      "decode_iters": 0, "busy_s": 0.0,
+                      "migrations_in": 0, "migrated_blocks": 0,
+                      "migrate_s": 0.0}
         # decode_iteration (loop thread) and prefill/decode batches
         # (scheduler thread) update stats concurrently
         self._stats_lock = threading.Lock()
         self._decode_loop: Optional[ContinuousDecodeLoop] = None
         self._pads: List[SeqState] = []   # reusable batch-padding states
         self.spec = None                  # SpeculativeDecoder (opt-in)
-        # SLO scheduling and fault injection are not ported: the copied
-        # decode loop reads these and finds them unarmed
-        self.slo = None
+        # fault tolerance: an attached FaultInjector (None = hooks are a
+        # single attribute read) and this replica's own health mark
+        # (escalated by loop death / injected crash; the pool's health
+        # view takes the worse of the two)
         self.faults = None
-        self.health = "healthy"           # the decode loop marks a death
+        self.health = "healthy"
+        # SLO scheduling (serving/slo.py): policy attached by attach_slo
+        # (None = every scheduling path as without it). _slo_ptoks
+        # records each sid's prefilled token context so a preempted
+        # sequence can rebuild its KV by replay; the block charge mirrors
+        # try_admit reservations into the fair-share ledger.
+        self.slo = None
+        self._slo_ptoks: Dict[str, list] = {}
+        self._slo_block_charge: Dict[str, tuple] = {}
         self._reset_batch_cache()
 
     def clone(self, idx: int = 1) -> "LLMEngine":
@@ -251,22 +259,6 @@ class LLMEngine(DecodeLoopMixin):
         self.spec = SpeculativeDecoder(self, drafter=drafter, k=k,
                                        max_ngram=max_ngram)
         return self.spec
-
-    # -- serving-layer hooks not ported yet ---------------------------------
-    def attach_slo(self, *args, **kwargs):
-        _not_ported("SLO scheduling (attach_slo)")
-
-    def preempt_decode(self, seq):
-        _not_ported("SLO preemption (preempt_decode)")
-
-    def recover_decode(self, *args, **kwargs):
-        _not_ported("fault recovery (recover_decode)")
-
-    def export_seq(self, sid: str):
-        _not_ported("sequence migration (export_seq)")
-
-    def import_seq(self, handle):
-        _not_ported("sequence migration (import_seq)")
 
     # -- occupancy -----------------------------------------------------------
     def kv_occupancy(self) -> int:
@@ -534,6 +526,7 @@ class LLMEngine(DecodeLoopMixin):
         allocation happen under one lock hold, so admitted decodes'
         reservations cannot race in between). Waits unlocked so the
         decode loop keeps draining; caller must release the lock."""
+        self._fault("alloc")
         deadline = time.time() + self.ALLOC_TIMEOUT
         timed_out = False
         while True:
@@ -572,6 +565,12 @@ class LLMEngine(DecodeLoopMixin):
                 f"waiters={self.alloc.waiters()} "
                 f"resident_seqs={len(self.states)}")
 
+    def _fault(self, point: str):
+        """Fault-injection hook: a single attribute read when unarmed."""
+        inj = self.faults
+        if inj is not None:
+            inj.fire(self, point)
+
     # -- batched execution -------------------------------------------------
     def _stack_states(self, states: List[SeqState]):
         cache = tree_map(lambda *xs: torch.cat(xs, dim=1),
@@ -602,6 +601,7 @@ class LLMEngine(DecodeLoopMixin):
         returned per-sequence logits are EXACT: gathered at chunk index
         len(t)-1, so bucketed (right-padded) prefill matches unpadded
         prefill token-for-token."""
+        self._fault("prefill")
         t0 = time.time()
         B = _bucket(len(items), BUCKETS_B)
         S = _bucket(max(len(t) for _, t in items), BUCKETS_S)
@@ -773,9 +773,8 @@ class LLMEngine(DecodeLoopMixin):
                       on_done=None, slo=None) -> DecodeSeq:
         """Admit sequence `sid` into the continuous decode loop for
         `max_new` tokens. on_text(text_so_far) fires every iteration;
-        on_done(seq) fires at eviction. Returns the DecodeSeq."""
-        if slo is not None:
-            _not_ported("SLO scheduling (submit_decode slo=)")
+        on_done(seq) fires at eviction. ``slo`` is the request's SLO tag
+        (ignored unless a policy is armed). Returns the DecodeSeq."""
         st = self.states[sid]
         max_new = self._clamp_new(st, max_new)
         if self.paged and \
@@ -786,7 +785,64 @@ class LLMEngine(DecodeLoopMixin):
                 f"never fit the {self.alloc.capacity}-block pool")
         seq = DecodeSeq(sid, st, max_new,
                         text_fn=lambda s: self.tok.decode(s.tokens),
-                        on_text=on_text, on_done=on_done)
+                        on_text=on_text, on_done=on_done, slo=slo)
+        return self.start_decode_loop().submit(seq)
+
+    def recover_decode(self, sid: str, text: str, max_new: int,
+                       failed=None, on_text=None, on_done=None,
+                       slo=None) -> DecodeSeq:
+        """Token-identical replay of a sequence lost on a DEAD replica
+        (fault-tolerance path): re-prefill the prompt from the e-graph's
+        payload, teacher-force the tokens the dead replica already
+        emitted back into the KV cache, and resume greedy decode for the
+        remainder. Greedy argmax is deterministic given identical weights
+        and identical resident tokens, so the concatenation
+        ``emitted + continued`` matches a no-fault run token for token.
+
+        ``failed`` is the dead replica's DecodeSeq handle (its
+        ``.tokens`` are the emitted prefix; host objects survive replica
+        death) or None when nothing was emitted yet — e.g. the sequence's
+        affinity pointed at a replica that died before its first decode."""
+        emitted = [int(x) for x in getattr(failed, "tokens", [])] \
+            if failed is not None else []
+        self.release(sid)          # drop any stale local copy of the sid
+        st, toks, ptoks = self._prepare_prefill_task(
+            {"sid": sid, "text": text})
+        if toks:
+            self.meter.advance(sid, len(toks))
+            self.prefill_batch([(st, toks)])
+        if self.spec is not None:
+            self.spec.note_prefill(sid, ptoks, toks)
+        n = self._clamp_new(st, max_new)   # same clamp as a clean submit
+        emitted = emitted[:n]
+        if emitted:
+            # teacher-force the emitted prefix: feeding
+            # [p_prompt, e_1 .. e_{m-1}] recreates the exact pos /
+            # last_token the dead replica held after emitting e_m
+            feed = [st.last_token] + emitted[:-1]
+            self.meter.advance(sid, len(feed))
+            self.prefill_batch([(st, feed)])
+        seq = DecodeSeq(sid, st, n,
+                        text_fn=lambda s: self.tok.decode(s.tokens),
+                        on_text=on_text, on_done=on_done, slo=slo)
+        seq.tokens = list(emitted)
+        seq.steps = len(emitted)
+        if seq.steps >= seq.n:
+            # the dead replica had already finished decoding — only the
+            # completion callback was lost. Finish without the loop.
+            seq.result = self.tok.decode(seq.tokens)
+            seq.t_done = time.time()
+            seq.done.set()
+            if on_done is not None:
+                on_done(seq)
+            return seq
+        if self.paged and \
+                kvc.blocks_for(st.pos + (n - seq.steps), self.block_size) \
+                > self.alloc.capacity:
+            raise ValueError(
+                f"decode {sid}: recovery at pos {st.pos} + "
+                f"{n - seq.steps} new tokens can never fit the "
+                f"{self.alloc.capacity}-block pool")
         return self.start_decode_loop().submit(seq)
 
     def submit_prefill(self, task: dict, on_done=None) -> PrefillJob:
@@ -801,8 +857,6 @@ class LLMEngine(DecodeLoopMixin):
         if not self.chunked_prefill:
             raise RuntimeError(
                 f"{self.name}: chunked_prefill is disabled")
-        if task.get("slo") is not None:
-            _not_ported("SLO scheduling (submit_prefill slo=)")
         sid = task["sid"]
         st, toks, ptoks = self._prepare_prefill_task(task)
 
@@ -814,7 +868,8 @@ class LLMEngine(DecodeLoopMixin):
             if on_done is not None:
                 on_done(job)
 
-        job = PrefillJob(sid, st, toks, on_done=_done, ptoks=ptoks)
+        job = PrefillJob(sid, st, toks, on_done=_done, ptoks=ptoks,
+                         slo=task.get("slo"))
         if not toks:
             # prompt fully covered by the forked instruction prefix —
             # nothing to write; complete without touching the loop
@@ -859,6 +914,7 @@ class LLMEngine(DecodeLoopMixin):
         held by a scheduler-side batch — is busy, the chunk is DECLINED:
         the job stays queued and the loop retries next pass. The decode
         loop must never sleep on prefill backpressure."""
+        self._fault("prefill")
         t0 = time.time()
         items = []                       # (job, chunk_token_list)
         if self.paged:
@@ -925,7 +981,20 @@ class LLMEngine(DecodeLoopMixin):
         if not self._paged_lock.acquire(blocking=False):
             return False
         try:
-            needed = self._blocks_needed(seq.state, seq.n)
+            if getattr(seq, "slo_preempted", False):
+                # preempted sequence re-entering: its table is empty and
+                # the whole replay horizon (recorded prompt context +
+                # teacher-forced emitted tokens + remaining steps) must
+                # be re-written — reserve for all of it
+                horizon = len(self._slo_ptoks.get(seq.sid, ())) + seq.n
+                needed = kvc.blocks_for(horizon, self.block_size)
+            else:
+                needed = self._blocks_needed(seq.state, seq.n)
+            pol = self.slo
+            if pol is not None and pol.blocks is not None:
+                tenant = pol.tag_of(seq).tenant
+                if not pol.may_take_blocks(tenant, needed):
+                    return False    # over block fair share — defer
             avail = self.alloc.free_blocks() - self._reserved_locked()
             if needed > avail and self.radix is not None:
                 # cached leaves never count AGAINST admission: they are
@@ -934,6 +1003,9 @@ class LLMEngine(DecodeLoopMixin):
                 avail += self.radix.evict(needed - avail)
             if needed <= avail:
                 self._decode_reserved[seq.sid] = needed
+                if pol is not None and pol.blocks is not None:
+                    pol.blocks.acquire(tenant, needed)
+                    self._slo_block_charge[seq.sid] = (tenant, needed)
                 return True
             return False
         finally:
@@ -942,10 +1014,19 @@ class LLMEngine(DecodeLoopMixin):
     def note_slot_acquired(self, seq: DecodeSeq):
         self.meter.acquire_slot(seq.sid)
 
+    def _slo_drop_block_charge(self, sid: str):
+        """Return a sequence's KV-block charge to the fair-share ledger
+        (eviction, preemption, or release — whichever comes first)."""
+        charge = self._slo_block_charge.pop(sid, None)
+        if charge is not None and self.slo is not None and \
+                self.slo.blocks is not None:
+            self.slo.blocks.release(*charge)
+
     def note_slot_released(self, seq: DecodeSeq):
         if self.paged:
             with self._paged_lock:
                 dropped = self._decode_reserved.pop(seq.sid, None)
+            self._slo_drop_block_charge(seq.sid)
             if dropped:
                 # headroom improved without a decref — wake prefill waiters
                 self.alloc.notify_waiters()
@@ -954,6 +1035,101 @@ class LLMEngine(DecodeLoopMixin):
             # before the slot is reused (its sid may decode again later)
             self._flush_batch_cache()
         self.meter.release_slot(seq.sid)
+
+    # -- SLO preemption (serving/slo.py): evict-to-recompute ---------------
+    def can_preempt(self, seq: DecodeSeq) -> bool:
+        """A sequence is preemptable only when its full KV context is
+        reconstructible from the recorded prompt tokens plus its emitted
+        tokens (single-decode lifecycles; a multi-turn state whose
+        earlier partial-decode tokens were never recorded, or a
+        migrated-in sequence with no record here, is excluded — losing
+        KV we cannot rebuild would break token identity)."""
+        rec = self._slo_ptoks.get(seq.sid)
+        if rec is None:
+            return False
+        return seq.state.pos == len(rec) + len(seq.tokens)
+
+    def preempt_decode(self, seq: DecodeSeq):
+        """Evict-to-recompute (loop thread): free ALL of the sequence's
+        KV — paged: trim its block table to position 0 (shared/radix
+        blocks just decref); dense: drop the per-sequence cache — and
+        release its decode slot, reservation and fair-share charge. The
+        loop re-queues the same DecodeSeq (tokens/steps intact); on
+        re-admission ``_slo_resume`` rebuilds the KV by replay."""
+        sid, st = seq.sid, seq.state
+        if self.paged:
+            with self._paged_lock:
+                kvc.trim_table(self.alloc, st.table, 0, self.block_size)
+                dropped = self._decode_reserved.pop(sid, None)
+            self._slo_drop_block_charge(sid)
+            if dropped:
+                self.alloc.notify_waiters()
+        else:
+            # write the shared batch cache back first (residency is
+            # changing), then drop this sequence's KV arrays
+            self._flush_batch_cache()
+            st.cache = kvc.init_cache(self.cfg, 1, self.max_len,
+                                      device=self.device)
+        st.pos = 0
+        st.last_token = 1                # replay re-derives it
+        seq.slo_preempted = True
+        self.meter.release(sid)          # tokens gone from memory
+        self.meter.release_slot(sid)
+
+    def _slo_resume(self, seq: DecodeSeq):
+        """Rebuild a preempted sequence's KV before it rejoins a decode
+        pass: re-prefill the recorded prompt context, then teacher-force
+        the already-emitted tokens — the same construction as
+        ``recover_decode``, so causal attention recreates the exact
+        pre-preemption state and the continuation is token-identical.
+        Paged writes draw down the sequence's re-admission reservation
+        (sized for the whole replay horizon in try_admit)."""
+        sid, st = seq.sid, seq.state
+        seq.slo_preempted = False
+        toks = list(self._slo_ptoks.get(sid, []))
+        if toks:
+            self._slo_replay_write(sid, st, toks)
+        emitted = [int(x) for x in seq.tokens]
+        if emitted:
+            self._slo_replay_write(sid, st,
+                                   [st.last_token] + emitted[:-1])
+
+    def _slo_replay_write(self, sid: str, st, toks: list):
+        """Prefill ``toks`` for a resuming sequence, bucketed-chunk by
+        chunk. Paged mode bypasses free-block admission: the blocks come
+        out of the sequence's own decode reservation."""
+        t0 = time.time()
+        i = 0
+        while i < len(toks):
+            chunk = toks[i:i + BUCKETS_S[-1]]
+            i += len(chunk)
+            B = _bucket(1, BUCKETS_B)
+            S = _bucket(len(chunk), BUCKETS_S)
+            grid, last_idx = self._prefill_toks([(st, chunk)], B, S)
+            if self.paged:
+                with self._paged_lock:
+                    got = self._prepare_write(st, len(chunk))
+                    if got:
+                        resv = self._decode_reserved.get(sid)
+                        if resv is not None:
+                            self._decode_reserved[sid] = max(0,
+                                                             resv - got)
+                    logits = self._paged_prefill_exec(
+                        [st], B, S, grid, last_idx)
+            else:
+                logits = self._dense_prefill_exec([st], B, grid, last_idx)
+            st.pos += len(chunk)
+            st.last_token = int(torch.argmax(logits[0]))
+            self.meter.advance(sid, len(chunk))
+        with self._stats_lock:
+            self.stats["prefill_tokens"] += len(toks)
+            self.stats["calls"] += 1
+            self.stats["busy_s"] += time.time() - t0
+
+    def tenant_stats(self) -> dict:
+        """Per-(tenant, class) scheduling stats (empty when SLO
+        scheduling is not armed on this replica)."""
+        return self.slo.tenant_stats() if self.slo is not None else {}
 
     def _pad_states(self, k: int) -> List[SeqState]:
         while len(self._pads) < k:
@@ -980,6 +1156,11 @@ class LLMEngine(DecodeLoopMixin):
         by a whole verified draft chunk per pass (the loop counts their
         emitted tokens); the rest — and everything, with it disabled —
         take the single-token step."""
+        self._fault("decode")
+        if self.slo is not None:
+            for r in seqs:
+                if getattr(r, "slo_preempted", False):
+                    self._slo_resume(r)
         if self.spec is not None:
             return self.spec.decode_iteration(seqs)
         return self._decode_iteration_base(seqs)
@@ -1124,6 +1305,13 @@ class LLMEngine(DecodeLoopMixin):
             out = []
         else:
             out = toks or [HashTokenizer.SEP]
+        if self.slo is not None:
+            # preemption replay record: every token that becomes part of
+            # this sid's KV context through a prefill path (cached
+            # prefixes included — replay re-prefills them fresh, same
+            # numerics)
+            self._slo_ptoks.setdefault(sid, []).extend(
+                list(ptoks) + list(out))
         return st, out, ptoks
 
     def op_prefill(self, task_batch):
@@ -1241,4 +1429,171 @@ class LLMEngine(DecodeLoopMixin):
                 dropped = self._decode_reserved.pop(sid, None)
             if dropped:
                 self.alloc.notify_waiters()
+        self._slo_drop_block_charge(sid)
+        self._slo_ptoks.pop(sid, None)
         self.meter.release(sid)
+
+    # -- sequence migration (disaggregated prefill/decode handoff) ---------
+    def export_seq(self, sid: str) -> dict:
+        """Snapshot sequence ``sid`` for migration to another replica
+        (``dst.import_seq(handle)``). The sequence stays fully resident
+        HERE until the import lands — on import failure nothing was
+        lost. A prompt still mid-flight in this engine's chunked-prefill
+        queue is detached first (cursor frozen); its remaining tokens
+        travel in the handle and resume on the destination. The caller
+        must not export a sequence while it is actively decoding in the
+        loop (serving migrates between prefill completion and decode
+        submission)."""
+        job = None
+        loop = self._decode_loop
+        if loop is not None and loop.is_alive():
+            job = loop.detach_prefill(sid)
+        with self._lock:
+            st = self.states[sid]
+        ctx = self.spec.export_ctx(sid) if self.spec is not None else None
+        return {"sid": sid, "engine": self, "state": st,
+                "paged": self.paged, "block_size": self.block_size,
+                "spec_ctx": ctx, "job": job}
+
+    def import_seq(self, handle) -> Optional[PrefillJob]:
+        """Adopt a sequence exported from another replica so it resumes
+        decoding here TOKEN-IDENTICALLY. This is the engine-level form
+        of ``kv_cache.migrate_blocks``, phased so each pool's lock is
+        held only for the phase touching it (the destination's decode
+        loop keeps iterating while the source stages blocks — migration
+        cost overlaps the loop's cadence):
+
+          1. reserve len(table) destination blocks under THIS pool's
+             lock, with the same backpressure/radix-eviction wait as
+             prefill admission (all-or-nothing: on timeout the source
+             is untouched);
+          2. stage the source blocks out under the SOURCE pool's lock
+             (gather only reads — the source keeps serving);
+          3. scatter the staged blocks into the reserved slots under
+             this pool's lock and register the sequence, then release
+             the source atomically (``src.release`` drops exactly the
+             sequence's own refs — blocks shared with the source's
+             radix tree or COW forks survive there; every block here is
+             freshly allocated, refcount 1: the migrated copy is
+             sequence-private and is NOT inserted into this replica's
+             prefix cache).
+
+        Returns the continuation PrefillJob when the handle carried a
+        mid-flight prompt (completing it also completes the original
+        job so source-side waiters unblock), else None."""
+        self._fault("migrate")
+        src, sid, st = handle["engine"], handle["sid"], handle["state"]
+        if src is self:
+            # self-import: nothing moves; re-queue a detached job
+            job = handle.get("job")
+            if job is not None and job.remaining() and \
+                    not job.done.is_set():
+                return self.start_decode_loop().submit_prefill(job)
+            return None
+        if handle["paged"] != self.paged or \
+                (self.paged and handle["block_size"] != self.block_size):
+            raise ValueError(
+                f"{self.name}: cannot import {sid} from "
+                f"{getattr(src, 'name', '?')} (paged/block_size mismatch)")
+        t0 = time.time()
+        n_blocks = 0
+        if self.paged:
+            n_blocks = len(st.table)
+            dst_table = self._acquire_import_blocks(n_blocks)
+            if n_blocks:
+                # the gather and the scatter are queued on the current
+                # stream in this order; src.release below only decrefs
+                # host-side bookkeeping, and a reused source block is
+                # written by a later kernel on the same stream, after the
+                # gather has read it
+                with src._paged_lock:
+                    stage = kvc.gather_pool_blocks(src.pool, st.table)
+                with self._paged_lock:
+                    kvc.scatter_pool_blocks(self.pool, stage, dst_table)
+            new_st = PagedSeqState(table=dst_table, pos=st.pos,
+                                   last_token=st.last_token)
+        else:
+            # dense states are portable — adopt the object
+            new_st = st
+        with self._lock:
+            self.states[sid] = new_st
+        self.meter.advance(sid, new_st.pos)
+        if self.spec is not None and handle.get("spec_ctx"):
+            self.spec.import_ctx(sid, handle["spec_ctx"], new_st)
+        src.release(sid)                 # atomic source-side release
+        with self._stats_lock:
+            self.stats["migrations_in"] += 1
+            self.stats["migrated_blocks"] += n_blocks
+            self.stats["migrate_s"] += time.time() - t0
+        job = handle.get("job")
+        if job is not None and job.remaining() and not job.done.is_set():
+            return self._resume_prefill(sid, new_st, job)
+        return None
+
+    def _acquire_import_blocks(self, n: int) -> List[int]:
+        """Reserve ``n`` fresh pool blocks for an incoming migration
+        with the same backpressure as ``_acquire_with_blocks``: wait
+        unlocked (the decode loop keeps draining), evict radix leaves
+        under pressure, honor admitted decodes' reservations, and time
+        out loudly. Returns the reserved block list (each refcount 1);
+        the paged lock is NOT held on return — allocated blocks cannot
+        be taken by anyone else."""
+        self._fault("alloc")
+        deadline = time.time() + self.ALLOC_TIMEOUT
+        timed_out = False
+        while True:
+            with self._paged_lock:
+                avail = self.alloc.free_blocks() - self._reserved_locked()
+                if n > avail and self.radix is not None:
+                    avail += self.radix.evict(n - avail)
+                if n <= avail:
+                    return kvc.reserve_blocks(self.alloc, n)
+            if timed_out:
+                raise kvc.OutOfBlocks(
+                    f"{self.name}: cannot reserve {n} blocks for an "
+                    f"incoming migration ({self.alloc.capacity} blocks, "
+                    f"{self.alloc.free_blocks()} free); "
+                    f"{self._pool_diag()}")
+            timed_out = not self.alloc.wait_for_free(
+                n, timeout=deadline - time.time(),
+                reserved_fn=self._reserved_less_evictable)
+
+    def _resume_prefill(self, sid: str, st, old: PrefillJob) -> PrefillJob:
+        """Continue a mid-flight chunked prefill after migration: the
+        remaining prompt tokens stream through THIS engine's loop (or
+        land synchronously when this engine is not chunked). The original
+        job object is completed when the continuation lands so exporters'
+        waiters unblock; its ``on_done`` chain is NOT re-fired — those
+        hooks (source-engine radix insert, spec note) belong to the
+        source, and the migrated copy is sequence-private here."""
+        pending = list(old.tokens[old.cursor:])
+
+        def _done(job):
+            if job.error is None and self.spec is not None:
+                # full-job context, exactly what the source would have
+                # noted at completion (where the compute ran is
+                # irrelevant to the token stream)
+                self.spec.note_prefill(sid, list(old.ptoks),
+                                       list(old.tokens))
+            old.t_done = time.time()
+            old.error = job.error
+            old.done.set()
+
+        job = PrefillJob(sid, st, pending, on_done=_done, ptoks=old.ptoks)
+        if self.chunked_prefill:
+            return self.start_decode_loop().submit_prefill(job)
+        # monolithic destination: land the remainder now
+        try:
+            self.meter.advance(sid, len(pending))
+            self.prefill_batch([(st, pending)])
+            job.cursor = len(pending)
+        except Exception as e:  # noqa: BLE001
+            job.error = e
+        job.t_done = time.time()
+        if job.error is None and self.spec is not None:
+            self.spec.note_prefill(sid, list(old.ptoks), list(old.tokens))
+        old.t_done = job.t_done
+        old.error = job.error
+        job.done.set()
+        old.done.set()
+        return job

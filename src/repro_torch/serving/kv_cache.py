@@ -23,11 +23,12 @@ buffer it passes in) and return them. The paged pool is written in place
 too: ``copy_pool_blocks`` copies blocks inside the pool instead of
 returning a new one.
 
-The allocator, the radix tree and the block-mode occupancy meter are
-copies of the reference's pure-Python classes. Block migration between
-pools (``gather_pool_blocks``, ``scatter_pool_blocks``,
-``migrate_blocks``) and dead-replica reclamation belong to the serving
-layers not ported yet (ROADMAP.md Queue 1, item 8).
+The allocator, the radix tree, the block-mode occupancy meter and
+dead-replica reclamation (``reclaim_replica``) are copies of the
+reference's pure-Python code. Block migration between pools
+(``gather_pool_blocks``, ``scatter_pool_blocks``, ``migrate_blocks``)
+stages blocks out with ``index_select`` and lands them with
+``index_copy_``, in place.
 """
 from __future__ import annotations
 
@@ -537,6 +538,60 @@ class RadixPrefixCache:
         self._blocks = blocks                # rebind, no mutate
 
 
+def reclaim_replica(engine, lock_timeout: float = 2.0) -> dict:
+    """Release every sequence, cached prefix and decode reservation of a
+    DEAD replica and audit its allocator for leaks (free-list / refcount
+    conservation). Works on real and sim engines (sim has no allocator;
+    only the sequence table is dropped).
+
+    A replica that died while HUNG may hold its paged pool lock forever;
+    rather than deadlocking the recovery path, its blocks are written
+    off (``written_off=True``) — the pool is per-replica, so the leak is
+    contained to memory the dead replica owned anyway."""
+    report = {"engine": getattr(engine, "name", "?"), "released": 0,
+              "radix_refs": 0, "prefix_refs": 0, "leaked": -1,
+              "ok": True, "written_off": False}
+    paged = bool(getattr(engine, "paged", False))
+    plock = getattr(engine, "_paged_lock", None)
+    if paged and plock is not None:
+        # probe only: if a hung thread holds the pool lock, releasing
+        # block tables would block forever — write the pool off instead.
+        # (release() takes engine._lock before _paged_lock; holding the
+        # paged lock across release() here would invert that order.)
+        if not plock.acquire(timeout=lock_timeout):
+            report["written_off"] = True
+            report["ok"] = False
+            return report
+        plock.release()
+    for sid in list(getattr(engine, "states", {})):
+        try:
+            engine.release(sid)
+            report["released"] += 1
+        except Exception:  # noqa: BLE001 — reclaim everything we can
+            pass
+    radix = getattr(engine, "radix", None)
+    if radix is not None:
+        report["radix_refs"] = radix.clear()
+    pc = getattr(engine, "prefix_cache", None)
+    alloc = getattr(engine, "alloc", None)
+    if paged and isinstance(pc, dict) and alloc is not None:
+        for st in pc.values():
+            for b in getattr(st, "table", []) or []:
+                alloc.decref(b)
+                report["prefix_refs"] += 1
+        pc.clear()
+    resv = getattr(engine, "_decode_reserved", None)
+    if resv is not None:
+        resv.clear()
+    if paged and alloc is not None:
+        audit = alloc.audit()
+        report["leaked"] = alloc.capacity - alloc.free_blocks()
+        report["ok"] = audit["ok"] and report["leaked"] == 0
+        alloc.notify_waiters()
+    else:
+        report["leaked"] = 0
+    return report
+
 
 def _paged_elem_shape(cfg: ModelConfig, spec: LayerSpec, repeat: int,
                       num_blocks: int, block_size: int):
@@ -605,13 +660,42 @@ def copy_pool_blocks(pool, srcs, dsts):
     if set(srcs) & set(dsts):
         raise ValueError(f"copy_pool_blocks: srcs {srcs} and dsts {dsts} "
                          f"overlap")
-    arrays = [a for elems in pool["stages"] for elem in elems
-              for a in elem.values()]
+    arrays = _pool_arrays(pool)
     s = torch.as_tensor(srcs, dtype=torch.long, device=arrays[0].device)
     d = torch.as_tensor(dsts, dtype=torch.long, device=arrays[0].device)
     with torch.inference_mode():
         for a in arrays:
             a[:, d] = a[:, s]
+    return pool
+
+
+def _pool_arrays(pool) -> list:
+    return [a for elems in pool["stages"] for elem in elems
+            for a in elem.values()]
+
+
+def gather_pool_blocks(pool, blocks):
+    """Copy blocks out of ``pool`` into a free-standing staged tree (same
+    structure, block axis shrunk to ``len(blocks)``): one ``index_select``
+    per pool array. No refcount side effects; the pool is only read, so
+    its owner keeps serving from it."""
+    idx = torch.as_tensor(blocks, dtype=torch.long,
+                          device=_pool_arrays(pool)[0].device)
+    with torch.inference_mode():
+        return {"stages": [[{name: a.index_select(1, idx)
+                             for name, a in elem.items()}
+                            for elem in elems] for elems in pool["stages"]]}
+
+
+def scatter_pool_blocks(pool, stage, blocks):
+    """Write a staged tree (from ``gather_pool_blocks``) into slots
+    ``blocks`` of ``pool``, IN PLACE (``index_copy_`` per pool array), and
+    return the same pool. No refcount side effects."""
+    arrays = _pool_arrays(pool)
+    idx = torch.as_tensor(blocks, dtype=torch.long, device=arrays[0].device)
+    with torch.inference_mode():
+        for a, st in zip(arrays, _pool_arrays(stage)):
+            a.index_copy_(1, idx, st)
     return pool
 
 
@@ -628,6 +712,47 @@ def reserve_blocks(alloc: "BlockAllocator", n: int) -> list:
             alloc.decref(b)
         raise
     return got
+
+
+def migrate_blocks(src_alloc: "BlockAllocator", src_pool,
+                   dst_alloc: "BlockAllocator", dst_pool,
+                   table, *, dst_table=None):
+    """Paged KV handoff: copy the blocks of one sequence's ``table`` from
+    a source pool into blocks reserved in a DESTINATION pool (another
+    replica), IN PLACE, returning ``(dst_table, dst_pool)``. Built on the
+    ``copy_pool_blocks`` contract: the data move itself has no refcount
+    side effects, so this primitive owns the bookkeeping explicitly.
+
+    Atomicity: destination capacity is secured FIRST (``reserve_blocks``,
+    all-or-nothing); only after the staged copy lands is the source table
+    decref'd — on reservation failure the source is untouched and
+    ``OutOfBlocks`` propagates. Refcounts: each source entry loses exactly
+    the sequence's OWN reference, so blocks shared with a radix prefix
+    tree or a COW fork survive on the source, still owned there; every
+    destination block is freshly allocated with refcount 1 — the migrated
+    copy is sequence-private (it is NOT inserted into any prefix cache).
+    The pad block is never migrated: tables never contain it (asserted).
+
+    Pass ``dst_table`` to supply pre-reserved destination blocks (the
+    engine path reserves under backpressure before staging). The caller
+    must serialize access to each pool against its owner's step loop.
+    The source is only read. Its blocks are decref'd once the gather is
+    queued: on one stream any later write into a reused source block
+    runs after the gather has read it."""
+    table = list(table)
+    assert PAD_BLOCK not in table, "pad block in a sequence block table"
+    if not table:
+        return [], dst_pool
+    if dst_table is None:
+        dst_table = reserve_blocks(dst_alloc, len(table))
+    else:
+        dst_table = list(dst_table)
+        assert len(dst_table) == len(table)
+    stage = gather_pool_blocks(src_pool, table)
+    scatter_pool_blocks(dst_pool, stage, dst_table)
+    for b in table:
+        src_alloc.decref(b)
+    return dst_table, dst_pool
 
 
 # ---------------------------------------------------------------------------

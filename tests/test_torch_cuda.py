@@ -784,3 +784,135 @@ def test_rwkv6_scan_in_a_cuda_graph(cuda):
         assert torch.equal(y_pre, want_pre)
         assert torch.equal(y_dec, want_dec)
         assert torch.equal(state, s)
+
+
+# ---------------------------------------------------------------------------
+# the serving layers' pool operations on the card
+
+def _card_pool(cfg, nb, bs, dev, stamp=False):
+    """A paged pool on the card; with ``stamp`` every cell holds its own
+    block id."""
+    pool = kvc.init_paged_pool(cfg, nb, bs, device=dev)
+    if stamp:
+        for a in kvc._pool_arrays(pool):
+            ids = torch.arange(a.shape[1], dtype=a.dtype, device=dev)
+            a.copy_(ids.reshape((1, -1) + (1,) * (a.ndim - 2)).expand_as(a))
+    return pool
+
+
+def test_migrate_blocks_between_pools_on_the_card(cuda):
+    """The blocks' data moves, refcounts are conserved (shared source
+    blocks survive), and a full destination leaves both allocators and
+    the destination's data untouched."""
+    cfg = get_config("tiny-lite-llm")
+    sa, da = kvc.BlockAllocator(16), kvc.BlockAllocator(16)
+    src = _card_pool(cfg, 16, 8, cuda, stamp=True)
+    dst = _card_pool(cfg, 16, 8, cuda)
+    table = kvc.reserve_blocks(sa, 5)
+    sa.incref(table[1])                       # co-owned, e.g. by a radix
+    dst_table, out = kvc.migrate_blocks(sa, src, da, dst, table)
+    torch.cuda.synchronize()
+    assert out is dst and len(set(dst_table)) == 5
+    assert [sa.refcount(b) for b in table] == [0, 1, 0, 0, 0]
+    assert all(da.refcount(b) == 1 for b in dst_table)
+    for a in kvc._pool_arrays(dst):
+        for s, d in zip(table, dst_table):
+            assert bool((a[:, d] == float(s)).all())
+    small = kvc.BlockAllocator(4)             # 3 blocks, 2 of them held
+    held = kvc.reserve_blocks(small, 2)
+    full = _card_pool(cfg, 4, 8, cuda)
+    before = [a.clone() for a in kvc._pool_arrays(full)]
+    table2 = kvc.reserve_blocks(sa, 3)
+    refs = sa.refs_snapshot(), small.refs_snapshot()
+    with pytest.raises(kvc.OutOfBlocks):
+        kvc.migrate_blocks(sa, src, small, full, table2)
+    assert (sa.refs_snapshot(), small.refs_snapshot()) == refs
+    assert small.free_blocks() == small.capacity - len(held)
+    for a, b in zip(kvc._pool_arrays(full), before):
+        assert torch.equal(a, b)
+
+
+def _seq_kv(eng, st):
+    """The sequence's K/V rows [0, pos) of every pool array, gathered
+    through its block table, as float32 on the host."""
+    idx = torch.tensor(st.table, dtype=torch.long, device=eng.device)
+    out = []
+    for a in kvc._pool_arrays(eng.pool):
+        rows = a.index_select(1, idx)
+        rows = rows.reshape(a.shape[0], -1, *a.shape[3:])[:, :st.pos]
+        out.append(rows.float().cpu())
+    return out
+
+
+def test_paged_preemption_replay_rewrites_the_kv_on_the_card(cuda):
+    """Evict-to-recompute on the card: preemption frees every block of the
+    sequence, the replay on re-admission (the prompt, then the emitted
+    tokens teacher-forced, through the prefill kernel) writes K/V equal
+    to those written before preemption within bf16 rounding, and the
+    continuation is the unpreempted run's."""
+    from repro_torch.engines.decode_loop import DecodeSeq
+    from repro_torch.engines.llm_engine import LLMEngine
+    from repro_torch.serving.slo import attach_slo
+
+    def fresh():
+        eng = LLMEngine("t", get_config("tiny-lite-llm"), max_len=128,
+                        max_batch=4, paged=True, block_size=8, num_blocks=64,
+                        device=cuda)
+        attach_slo({"llm": eng}, preempt_cooldown_s=0.0)
+        eng.op_prefill([{"sid": "s", "text":
+                         "some moderately long prompt words here"}])
+        seq = DecodeSeq("s", eng.states["s"], 10,
+                        text_fn=lambda q: eng.tok.decode(q.tokens))
+        assert eng.try_admit(seq)
+        eng.note_slot_acquired(seq)
+        return eng, seq
+
+    def drive(eng, seq, iters):
+        for _ in range(iters):
+            before = len(seq.tokens)
+            eng.decode_iteration([seq])
+            seq.steps += max(1, len(seq.tokens) - before)
+
+    eng0, base = fresh()
+    drive(eng0, base, 10)
+    eng, seq = fresh()
+    drive(eng, seq, 4)
+    kv_before, pos = _seq_kv(eng, seq.state), seq.state.pos
+    free0 = eng.alloc.free_blocks()
+    eng.preempt_decode(seq)
+    assert seq.state.pos == 0 and not seq.state.table
+    assert eng.alloc.free_blocks() > free0
+    assert eng.try_admit(seq)
+    eng.note_slot_acquired(seq)
+    n5 = tcp.chunk_prefill_attention.launches
+    eng._slo_resume(seq)
+    torch.cuda.synchronize()
+    assert tcp.chunk_prefill_attention.launches > n5
+    assert seq.state.pos == pos
+    for a, b in zip(_seq_kv(eng, seq.state), kv_before):
+        torch.testing.assert_close(a, b, rtol=1e-2, atol=1e-2)
+    drive(eng, seq, 6)
+    assert seq.tokens == base.tokens
+    eng.note_slot_released(seq)
+    eng.release("s")
+    assert eng.alloc.audit()["ok"]
+    assert eng.alloc.free_blocks() == eng.alloc.capacity
+
+
+def test_reclaim_replica_on_a_card_pool_with_live_sequences(cuda):
+    from repro_torch.engines.llm_engine import LLMEngine
+    eng = LLMEngine("p", get_config("tiny-lite-llm"), max_len=256,
+                    paged=True, block_size=8, num_blocks=32,
+                    prefix_cache="radix", device=cuda)
+    text = " ".join(f"w{i}" for i in range(16))
+    eng.op_prefill([{"sid": "s0", "text": text + " alpha"},
+                    {"sid": "s1", "text": text + " beta"}])
+    seq = eng.submit_decode("s1", 4)
+    assert seq.wait(120)
+    eng.stop_decode_loop()
+    assert eng.alloc.used_blocks() > 0 and eng.radix.num_blocks() > 0
+    report = kvc.reclaim_replica(eng)
+    assert report["ok"] and report["leaked"] == 0
+    assert report["released"] == 2 and report["radix_refs"] > 0
+    assert eng.alloc.free_blocks() == eng.alloc.capacity
+    assert eng.alloc.audit()["ok"] and eng.states == {}

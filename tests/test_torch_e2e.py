@@ -84,14 +84,6 @@ def test_port_continuous_batching_same_answer(runs):
     assert got["answer"] == runs["port"]["answer"]
 
 
-@pytest.mark.parametrize("kw", [{"fault_tolerance": object()},
-                                {"overload": object()}])
-def test_port_runtime_rejects_unported_serving_layers(runs, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TTeola(tapps.naive_rag(runs["port_engines"]), runs["port_engines"],
-               **kw)
-
-
 @pytest.fixture(scope="module")
 def paged_runs():
     """Both packages on the paged serving path: paged + chunked + radix

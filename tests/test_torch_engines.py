@@ -156,11 +156,6 @@ def test_clone_shares_weights_not_state():
 
 
 _UNPORTED = {
-    "attach_slo": lambda e: e.attach_slo(object()),
-    "export_seq": lambda e: e.export_seq("a"),
-    "import_seq": lambda e: e.import_seq({"sid": "a"}),
-    "recover_decode": lambda e: e.recover_decode("a", "some text", 4),
-    "preempt_decode": lambda e: e.preempt_decode(None),
     "paged_mla": lambda e: TLLMEngine("t", tget_config("deepseek-v3-671b"),
                                       paged=True, device="cpu"),
 }
@@ -168,8 +163,9 @@ _UNPORTED = {
 
 @pytest.mark.parametrize("what", sorted(_UNPORTED))
 def test_unported_options_raise(what):
-    """The serving-layer hooks (ROADMAP item 8) and MLA (item 10, paged or
-    not) still refuse, naming the ROADMAP item."""
+    """MLA (ROADMAP item 10, paged or not) still refuses, naming the
+    ROADMAP item. The serving-layer hooks are held in
+    tests/test_torch_serving_layers.py."""
     eng = TLLMEngine("t", tget_config("tiny-lite-llm"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _UNPORTED[what](eng)
