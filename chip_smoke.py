@@ -10,9 +10,11 @@ Phases, in order; any failure exits non-zero:
      registers and spills from ptxas; the tensor-core instructions in
      the SASS of K1 and K5, which share the tile kernel (cuobjdump).
   3. kernels: each hand-written kernel against its plain PyTorch version on
-     the card, at the main paths' shapes (TinyLlama-1.1B heads; the paged
-     kernels over a 129-block x 16 bf16 pool with shuffled physical blocks
-     and two rows sharing prefix blocks), then timed beside its plain
+     the card, at the main paths' shapes (TinyLlama-1.1B's heads, and
+     Qwen1.5-MoE-A2.7B's at batch 4; the paged kernels over a 129-block x
+     16 bf16 pool with shuffled physical blocks and two rows sharing
+     prefix blocks); the raw profiler records held against
+     key_averages() on one profile; then each kernel timed beside its plain
      version and one library call: back-to-back calls between CUDA events
      (``ms``, which at decode sizes reads the wrapper's host work) and the
      device time of the kernels one call launches, from torch.profiler
@@ -36,20 +38,41 @@ Phases, in order; any failure exits non-zero:
      against CPU (prefill 100, 8 decode steps, a two-chunk prefill); then
      naive-RAG under Teola with the full 32-layer RWKV-6 3B as the core
      LLM on the dense path; 1 warm-up query, then 4 together.
-  8. apps: every app of core/apps.py under every scheme of serve.py's
+  8. archs: each other architecture at full width cut to 2 layers, card
+     against CPU as in phase 4 (prefill 100, partial prefill 40, 8 decode
+     steps): Qwen1.5-MoE-A2.7B (MoE; dense cache and paged pool),
+     DeepSeek-V3's dense-FFN stage (MLA at 128 heads; dense cache and
+     paged pool), Hymba-1.5B (hybrid, windowed), ChatGLM3-6B (G = 16, half
+     RoPE, QKV bias), DeepSeek-67B (G = 8), MusicGen-medium and
+     InternVL2-26B on embedding inputs; K1/K2 (K3-K5 on the pool) launch
+     wherever the attention is GQA over a linear cache; the CPU run
+     replays the card's MoE top-k choices, so every row is held; a choice
+     the CPU would have made otherwise is printed and must be a near-tie.
+  9. moe: naive-RAG under Teola with the full 24-layer Qwen1.5-MoE-A2.7B
+     as the core LLM (53.3 GiB of fp32 weights), on the dense path, then,
+     that engine freed, on the paged path (as phases 5 and 6); the MoE
+     dispatch on the engine's weights at a decode step and a verify
+     chunk, timed beside the reference's all-experts form; the whole
+     model on a dense cache and on a paged pool, the paged form replaying
+     the dense form's routing, held together at every row; greedy decode
+     alone and in a batch, and the two paths' core-LLM prompts, printed.
+ 10. hybrid: the same with the full 32-layer Hymba-1.5B on the dense
+     path; its Mamba branch timed at a decode step and a 512-token
+     prefill.
+ 11. apps: every app of core/apps.py under every scheme of serve.py's
      SCHEMES, the 22-layer TinyLlama-1.1B as the core LLM on the dense
      path: advanced-RAG, search-gen and contextual retrieval under Teola
      measured as in phase 5; each baseline a warm-up and one query per app
      (LlamaDistPC last); every answer non-empty, naive- and advanced-RAG's
      chunks naming the question's topic.
-  9. layers: the serving layers through the serve entry point's functions
+ 12. layers: the serving layers through the serve entry point's functions
      (build_parser, validate_args, make_engines, serve) with the same
      core: (a) two replicas with streaming, (b) SLO scheduling and a
      preemption replayed token-identically, (c) a crash of core-LLM
      replica 1 and its recovery, (d) disaggregated prefill/decode with KV
      migration, (e) overload control shedding part of a burst; every paged
      pool audits clean after release.
- 10. exit: ``python -m repro_torch.launch.serve`` in a process of its own
+ 13. exit: ``python -m repro_torch.launch.serve`` in a process of its own
      serves one query and exits with 0.
 
 After each serve window one more query runs under torch.profiler: the
@@ -76,6 +99,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -137,6 +161,8 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # CPU's matmuls can round to a neighbouring bf16 value
 MODEL_TOL = 1e-2
 H, K, HD, T = 32, 4, 64, 512          # TinyLlama-1.1B attention, max_len
+TINY_HEADS = (H, K, HD)
+QWEN_HEADS = (16, 16, 128)            # Qwen1.5-MoE-A2.7B attention (G = 1)
 NB, BS = 129, 16                      # the serve path's paged pool
 SEED = 0
 PAGED = [paged_decode_attention, verify_attention, chunk_prefill_attention]
@@ -163,15 +189,58 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def _device_rows(prof):
-    """(key, device us, count) of each device-side row the profiler saw
-    (kernels, copies, fills). CPU-op rows are left out: they also carry the
-    time of the kernels they launch, which those kernels' own rows hold."""
+def _device_records(prof):
+    """(name, start ns, device us) of each device-side record the profiler
+    saw (kernels, copies, fills), read from its raw results: building its
+    Python event tree (``events()``, ``key_averages()``) costs about 0.2
+    ms per record, 71 s for the 380k records of a Qwen1.5-MoE query."""
     from torch.autograd import DeviceType
-    return [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
+    return [(e.name(), e.start_ns(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not e.is_user_annotation()]
+
+
+def _device_rows(prof):
+    """(key, device us, count) of each device-side row the profiler saw,
+    one row per kernel name. CPU ops are left out: they also carry the
+    time of the kernels they launch, which those kernels' own rows hold."""
+    rows = {}
+    for name, _, us in _device_records(prof):
+        t, n = rows.get(name, (0.0, 0))
+        rows[name] = (t + us, n + 1)
+    return [(k, t, n) for k, (t, n) in rows.items()]
+
+
+def check_device_records(fn, iters: int = 5):
+    """Fails unless ``_device_rows`` (the raw records) and torch.profiler's
+    own ``key_averages()`` read one profile of ``iters`` calls of ``fn``
+    alike: the same kernels, the same counts, and the same device time
+    within 1 us per record (the event tree keeps whole microseconds)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    raw = {k: (t, n) for k, t, n in _device_rows(prof)}
+    avg = {e.key: (e.self_device_time_total, e.count)
+           for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)}
+    bad = sorted(k for k in raw.keys() | avg.keys()
+                 if k not in raw or k not in avg
+                 or raw[k][1] != avg[k][1]
+                 or abs(raw[k][0] - avg[k][0]) > raw[k][1] + 1e-3)
+    for k in sorted(raw):
+        print(f"[kernels] profiler records {_short(k)}: raw {raw[k][0]:.3f} "
+              f"us / {raw[k][1]}, key_averages {avg.get(k, (0.0, 0))[0]:.3f}"
+              f" us / {avg.get(k, (0.0, 0))[1]}")
+    if not raw or bad:
+        raise AssertionError(f"raw device records disagree with "
+                             f"key_averages() on {bad or 'an empty profile'}")
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 3):
@@ -282,27 +351,30 @@ def phase_build():
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions, timed
 
-def _kv(B, rs, dev):
-    return [torch.from_numpy(rs.standard_normal((B, T, K, HD)).astype(
+def _kv(B, rs, dev, kh=K, hd=HD):
+    return [torch.from_numpy(rs.standard_normal((B, T, kh, hd)).astype(
         np.float32)).to(dev, torch.bfloat16) for _ in range(2)]
 
 
 def _prefill_case(B, Sq, prefix, dev, window=None, cap=None,
-                  qdt=torch.float32):
+                  qdt=torch.float32, heads=TINY_HEADS):
+    nh, kh, hd = heads
     rs = np.random.RandomState(B * 1000 + Sq)
-    q = torch.from_numpy(rs.standard_normal((B, Sq, H, HD)).astype(
+    q = torch.from_numpy(rs.standard_normal((B, Sq, nh, hd)).astype(
         np.float32)).to(dev, qdt)
-    k, v = _kv(B, rs, dev)
+    k, v = _kv(B, rs, dev, kh, hd)
     pre = torch.tensor(prefix, dtype=torch.int32, device=dev)
     kw = dict(prefix_len=pre, window=window, cap=cap)
     return (q, k, v, kw)
 
 
-def _decode_case(B, length, dev, window=None, cap=None, qdt=torch.float32):
+def _decode_case(B, length, dev, window=None, cap=None, qdt=torch.float32,
+                 heads=TINY_HEADS):
+    nh, kh, hd = heads
     rs = np.random.RandomState(B * 7 + 1)
-    q = torch.from_numpy(rs.standard_normal((B, H, HD)).astype(
+    q = torch.from_numpy(rs.standard_normal((B, nh, hd)).astype(
         np.float32)).to(dev, qdt)
-    k, v = _kv(B, rs, dev)
+    k, v = _kv(B, rs, dev, kh, hd)
     ln = torch.tensor(length, dtype=torch.int32, device=dev)
     return (q, k, v, ln, dict(window=window, cap=cap))
 
@@ -383,33 +455,46 @@ def phase_kernels(dev) -> dict:
             raise AssertionError(f"{name} {label}: {err} > {tol}")
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
 
+    f32, tiny, qwen = torch.float32, TINY_HEADS, QWEN_HEADS
     cases = []
     for B in (1, 4):
         for Sq in (64, 256):
             prefix = [0, 37, 100, 200][:B]
-            cases.append((B, Sq, prefix, None, None, torch.float32))
-    cases.append((4, 256, [0, 37, 100, 200], 100, 50.0, torch.float32))
-    cases.append((4, 128, [0, 37, 100, 200], None, None, torch.bfloat16))
-    for B, Sq, prefix, window, cap, qdt in cases:
-        q, k, v, kw = _prefill_case(B, Sq, prefix, dev, window, cap, qdt)
+            cases.append((B, Sq, prefix, None, None, f32, tiny))
+    cases.append((4, 256, [0, 37, 100, 200], 100, 50.0, f32, tiny))
+    cases.append((4, 128, [0, 37, 100, 200], None, None, torch.bfloat16,
+                  tiny))
+    # Qwen1.5-MoE's heads, at the [moe] dense path's batch bucket
+    cases += [(1, 100, [0], None, None, f32, qwen),
+              (4, 128, [0, 37, 100, 200], None, None, f32, qwen)]
+    for B, Sq, prefix, window, cap, qdt, heads in cases:
+        q, k, v, kw = _prefill_case(B, Sq, prefix, dev, window, cap, qdt,
+                                    heads)
         got = flash_prefill(q, k, v, **kw)
         torch.cuda.synchronize()
         check("flash_prefill", got, flash_prefill_plain(q, k, v, **kw), qdt,
               f"B={B} Sq={Sq} prefix={prefix} window={window} cap={cap} "
-              f"q={str(qdt)[6:]}")
-    dcases = [(1, [300], None, None, torch.float32),
-              (4, [1, 130, 300, 512], None, None, torch.float32),
-              (4, [1, 130, 300, 512], 64, 50.0, torch.float32),
-              (4, [1, 130, 300, 512], None, None, torch.bfloat16),
-              (4, [63, 64, 65, 511], None, None, torch.float32)]
-    for B, length, window, cap, qdt in dcases:
-        q, k, v, ln, kw = _decode_case(B, length, dev, window, cap, qdt)
+              f"q={str(qdt)[6:]} H,K,hd={heads}")
+    dcases = [(1, [300], None, None, f32, tiny),
+              (4, [1, 130, 300, 512], None, None, f32, tiny),
+              (4, [1, 130, 300, 512], 64, 50.0, f32, tiny),
+              (4, [1, 130, 300, 512], None, None, torch.bfloat16, tiny),
+              (4, [63, 64, 65, 511], None, None, f32, tiny),
+              (4, [1, 130, 300, 512], None, None, f32, qwen),
+              (4, [63, 64, 65, 511], None, None, f32, qwen)]
+    for B, length, window, cap, qdt, heads in dcases:
+        q, k, v, ln, kw = _decode_case(B, length, dev, window, cap, qdt,
+                                       heads)
         got = decode_attention(q, k, v, ln, **kw)
         torch.cuda.synchronize()
         check("decode_attention", got, decode_attention_plain(q, k, v, ln,
                                                               **kw),
               qdt, f"B={B} length={length} window={window} cap={cap} "
-              f"q={str(qdt)[6:]}")
+              f"q={str(qdt)[6:]} H,K,hd={heads}")
+
+    # the profiler reading that every device time below rests on
+    q, k, v, ln, _ = _decode_case(4, [1, 130, 300, 512], dev)
+    check_device_records(lambda: decode_attention(q, k, v, ln))
 
     # timings at the representative main-path shapes (batch bucket 4)
     for B, Sq in ((1, 64), (4, 64), (4, 256)):
@@ -462,12 +547,12 @@ PAGED_PLAIN = {paged_decode_attention: paged_decode_attention_plain,
                chunk_prefill_attention: chunk_prefill_attention_plain}
 
 
-def _pool_and_tables(B, dev):
-    """A bf16 (NB, BS, K, HD) K/V pool pair and (B, T/BS) tables of
+def _pool_and_tables(B, dev, kh=K, hd=HD):
+    """A bf16 (NB, BS, kh, hd) K/V pool pair and (B, T/BS) tables of
     shuffled physical blocks, rows 0 and 1 sharing their first 4 blocks
     as a copy-on-write fork would."""
     rs = np.random.RandomState(SEED + B)
-    kp, vp = [torch.from_numpy(rs.standard_normal((NB, BS, K, HD)).astype(
+    kp, vp = [torch.from_numpy(rs.standard_normal((NB, BS, kh, hd)).astype(
         np.float32)).to(dev, torch.bfloat16) for _ in range(2)]
     t = rs.permutation(np.arange(1, NB))[:B * (T // BS)].reshape(B, -1)
     if B > 1:
@@ -475,14 +560,15 @@ def _pool_and_tables(B, dev):
     return kp, vp, torch.tensor(t, dtype=torch.int32, device=dev)
 
 
-def _paged_case(fn, B, Sq, pos, dev, qdt=torch.float32):
+def _paged_case(fn, B, Sq, pos, dev, qdt=torch.float32, heads=TINY_HEADS):
     """Inputs of one paged kernel call: pos is the per-row length (K3,
     K4) or chunk start (K5)."""
+    nh, kh, hd = heads
     rs = np.random.RandomState(B * 100 + Sq)
-    shape = (B, H, HD) if fn is paged_decode_attention else (B, Sq, H, HD)
+    shape = (B, nh, hd) if fn is paged_decode_attention else (B, Sq, nh, hd)
     q = torch.from_numpy(rs.standard_normal(shape).astype(np.float32)).to(
         dev, qdt)
-    kp, vp, t = _pool_and_tables(B, dev)
+    kp, vp, t = _pool_and_tables(B, dev, kh, hd)
     return q, kp, vp, t, torch.tensor(pos, dtype=torch.int32, device=dev)
 
 
@@ -542,8 +628,16 @@ def phase_paged_kernels(dev) -> dict:
                torch.float32),
               (chunk_prefill_attention, 4, 64, starts, None, None,
                torch.bfloat16)]
-    for fn, B, Sq, pos, window, cap, qdt in cases:
-        q, kp, vp, t, p = _paged_case(fn, B, Sq, pos, dev, qdt)
+    cases = [c + (TINY_HEADS,) for c in cases]
+    # Qwen1.5-MoE's heads, at the [moe-paged] path's batch bucket
+    for fn, Sq, pos in ((paged_decode_attention, 1, lengths),
+                        (verify_attention, 4, [4] + lengths[1:]),
+                        (verify_attention, 4, [64, 65, 129, 511]),
+                        (chunk_prefill_attention, 128, starts),
+                        (chunk_prefill_attention, 64, [0, 16, 63, 384])):
+        cases.append((fn, 4, Sq, pos, None, None, torch.float32, QWEN_HEADS))
+    for fn, B, Sq, pos, window, cap, qdt, heads in cases:
+        q, kp, vp, t, p = _paged_case(fn, B, Sq, pos, dev, qdt, heads)
         kw = dict(window=window, cap=cap)
         got = fn(q, kp, vp, t, p, **kw)
         torch.cuda.synchronize()
@@ -551,7 +645,8 @@ def phase_paged_kernels(dev) -> dict:
         err = (got.float() - want.float()).abs().max().item()
         tol = TOL[qdt]
         print(f"[kernels] {fn.__name__} B={B} Sq={Sq} pos={pos} "
-              f"window={window} cap={cap} q={str(qdt)[6:]}: max_abs_err "
+              f"window={window} cap={cap} q={str(qdt)[6:]} H,K,hd={heads}"
+              f": max_abs_err "
               f"{err:.3e} (tolerance {tol:g})")
         if not (err <= tol):
             raise AssertionError(f"{fn.__name__}: {err} > {tol}")
@@ -597,11 +692,11 @@ def phase_paged_kernels(dev) -> dict:
 # ---------------------------------------------------------------------------
 # phase 4: 2-layer TinyLlama-1.1B, card against CPU
 
-def two_layer_tinyllama():
-    cfg = get_config("tinyllama-1.1b")
-    st = cfg.stages[0]
-    return dataclasses.replace(cfg, name="tinyllama-1.1b-2l",
-                               stages=(Stage(pattern=st.pattern, repeat=2),))
+def two_layer(name):
+    """``name`` at full width, its first stage's pattern twice."""
+    cfg = get_config(name)
+    return dataclasses.replace(cfg, name=name + "-2l", stages=(
+        Stage(pattern=cfg.stages[0].pattern, repeat=2),))
 
 
 SCHED = [(0, 100), (100, 140)] + [(140 + i, 141 + i) for i in range(8)]
@@ -645,7 +740,7 @@ def _max_err(got, want):
 
 
 def phase_model(dev):
-    cfg = two_layer_tinyllama()
+    cfg = two_layer("tinyllama-1.1b")
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     params_cpu = init_params(cfg, gen, torch.float32, "cpu")
     params_dev = tree_to(params_cpu, dev)
@@ -767,10 +862,8 @@ def _k6_split(prof, lengths):
     or None where the profiler kept another number of records than there
     were calls. Any tree's kernel is split the same way, whatever its
     kernels' names."""
-    from torch.autograd import DeviceType
-    recs = sorted((e.time_range.start, e.time_range.end - e.time_range.start)
-                  for e in prof.events() if e.device_type == DeviceType.CUDA
-                  and kernel_owner(e.name) == "rwkv6_scan")
+    recs = sorted((start, us) for name, start, us in _device_records(prof)
+                  if kernel_owner(name) == "rwkv6_scan")
     if len(recs) != len(lengths):
         return None
     split = {}
@@ -798,6 +891,7 @@ def _profiled_query(teola, docs, card: str, kernels):
                               "docs": docs}, timeout=600)
         torch.cuda.synchronize()
         wall = time.time() - t0
+        t1 = time.time()
     if ctx.error is not None:
         raise ctx.error
     calls = {fn.__name__: fn.launches - n0[fn.__name__] for fn in kernels}
@@ -808,7 +902,9 @@ def _profiled_query(teola, docs, card: str, kernels):
               "device activity)")
         return
     print(f"[profile] one query under the profiler: wall {wall:.3f} s, "
-          f"device busy {dev_s:.3f} s ({100 * dev_s / wall:.1f}%) [{card}]")
+          f"device busy {dev_s:.3f} s ({100 * dev_s / wall:.1f}%), "
+          f"{sum(n for _, _, n in evs)} device records read in "
+          f"{time.time() - t1:.1f} s [{card}]")
     for t, key, _ in sorted(((t, k, n) for k, t, n in evs), reverse=True)[:8]:
         print(f"[profile]   {t / 1e3:9.3f} ms  {key[:90]}")
     mine = {}
@@ -902,10 +998,13 @@ def _print_window(tag, warm, wall, ctxs, dec, busy, launches, card):
 
 
 def phase_serve(dev, card: str, model="tinyllama-1.1b",
-                kernels=(flash_prefill, decode_attention), tag="serve"):
+                kernels=(flash_prefill, decode_attention), tag="serve",
+                on_core=None):
     """A dense path: naive-RAG under Teola with ``model`` as the core LLM,
-    its KV or recurrent state in the dense cache, through ``kernels``.
-    Returns (launches, answers: the warm-up query's, then the window's)."""
+    its KV or recurrent state in the dense cache, through ``kernels``
+    (``on_core(core)`` runs after the profiled query, while the engine
+    lives). Returns (launches, answers: the warm-up query's, then the
+    window's)."""
     torch.cuda.reset_peak_memory_stats()
     engines = build_engines(device=dev)
     core = LLMEngine("core_llm", get_config(model), seed=SEED, max_batch=4,
@@ -925,27 +1024,30 @@ def phase_serve(dev, card: str, model="tinyllama-1.1b",
         stats = dict(core.stats)
         dec = stats["decode_tokens"] - dec0
         _profiled_query(teola, docs, card, kernels)
+        if on_core is not None:
+            on_core(core)
     finally:
         teola.shutdown()
     answers = [warm_answer] + _check_answers(ctxs)
     kinds = {sp.kind for st in core.cfg.stages for sp in st.pattern}
+    held = {"rwkv": "recurrent state", "hybrid": "KV + Mamba state"}
     print(f"[{tag}] core_llm {model}, {_layers(engines)} layers, "
-          f"fp32 weights, dense "
-          f"{'recurrent state' if kinds == {'rwkv'} else 'KV'}; prefilled "
+          f"fp32 weights, dense {held.get(kinds.pop(), 'KV')}; prefilled "
           f"{stats['prefill_tokens']} and decoded {stats['decode_tokens']} "
           f"tokens over the {1 + len(QUESTIONS)} queries")
     _print_window(tag, warm, wall, ctxs, dec, busy, launches, card)
     return launches, answers
 
 
-def phase_serve_paged(dev, card: str, dense_answers):
+def phase_serve_paged(dev, card: str, dense_answers,
+                      model="tinyllama-1.1b", tag="paged"):
     """The paged path: paged KV + radix cache, chunked prefill, k=3
     prompt-lookup speculation, continuous batching. Returns launches."""
     torch.cuda.reset_peak_memory_stats()
     opts = dict(paged_kv=True, chunked_prefill=True, prefill_chunk=128,
                 prefix_cache="radix")
     engines = build_engines(device=dev, **opts)
-    core = LLMEngine("core_llm", get_config("tinyllama-1.1b"), seed=SEED,
+    core = LLMEngine("core_llm", get_config(model), seed=SEED,
                      max_batch=4, device=dev, paged=True,
                      chunked_prefill=True, prefill_chunk=128,
                      prefix_cache="radix")
@@ -982,25 +1084,26 @@ def phase_serve_paged(dev, card: str, dense_answers):
             f"paged pool leaked: {len(core.states)} sequences resident, "
             f"{core.alloc.free_blocks()} free of {core.alloc.capacity} "
             f"with {held} radix-held, audit {audit}")
-    print(f"[paged] core_llm tinyllama-1.1b, {_layers(engines)} layers, "
+    print(f"[{tag}] core_llm {model}, {_layers(engines)} layers, "
           f"fp32 weights, paged KV {core.num_blocks}x{core.block_size} + "
           f"radix cache, chunked "
           f"prefill 128, prompt-lookup speculation k=3, continuous batching")
-    _print_window("paged", warm, wall, ctxs, dec, busy, launches, card)
+    _print_window(tag, warm, wall, ctxs, dec, busy, launches, card)
     acc = spec["tokens_emitted"] / max(1, spec["seq_steps"])
-    print(f"[paged] radix: {radix['hit_tokens']} prefill tokens served from "
+    print(f"[{tag}] radix: {radix['hit_tokens']} prefill tokens served from "
           f"cache ({radix['hits']} hits, {radix['misses']} misses); "
           f"speculation: {spec['accepted']} of {spec['drafted']} drafted "
           f"tokens accepted, {acc:.2f} tokens per sequence step, "
           f"{spec['target_steps']} verify + {spec['fallback_steps']} "
           f"single-token target steps [{card}]")
-    print(f"[paged] pool after release: {core.alloc.free_blocks()} of "
+    print(f"[{tag}] pool after release: {core.alloc.free_blocks()} of "
           f"{core.alloc.capacity} blocks free, {held} held by the radix "
-          f"tree, audit ok")
+          f"tree, 0 leaked, audit ok")
     same = sum(a == b for a, b in zip(answers, dense_answers))
-    print(f"[paged] {same} of {len(answers)} answers (the warm-up query's "
+    print(f"[{tag}] {same} of {len(answers)} answers (the warm-up query's "
           f"and the window's) equal the dense path's token for token "
-          f"(printed only: the kernels sum in other orders)")
+          f"(printed only: the paths batch tokens in other groupings and "
+          f"the kernels sum in other orders)")
     return launches
 
 
@@ -1121,12 +1224,6 @@ def phase_rwkv_kernel(dev) -> dict:
     return res
 
 
-def two_layer_rwkv():
-    cfg = get_config(RWKV)
-    return dataclasses.replace(cfg, name=RWKV + "-2l", stages=(
-        Stage(pattern=cfg.stages[0].pattern, repeat=2),))
-
-
 def _state_leaves(cache):
     """The recurrent cache's leaves (state, sx_tm, sx_cm), on the CPU."""
     return {k: v.float().cpu() for k, v in cache["stages"][0][0].items()}
@@ -1137,7 +1234,7 @@ def phase_rwkv_model(dev):
     weights: prefill 100 tokens then 8 decode steps (logits and every
     layer's state and token-shift rows), one K6 launch per layer per
     forward, and a prefill in two chunks against one."""
-    cfg = two_layer_rwkv()
+    cfg = two_layer(RWKV)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params_cpu = init_params(cfg, gen, torch.float32, "cpu")
     params_dev = tree_to(params_cpu, dev)
@@ -1175,7 +1272,423 @@ def phase_rwkv_model(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: every app under every scheme ([apps])
+# phase 8: the other architectures at full width, 2 layers ([archs])
+
+# (model, also on the paged pool): each configuration's first stage at full
+# width, cut to 2 layers; DeepSeek-V3's is its dense-FFN stage (one of its
+# MoE layers alone holds 45 GB of fp32 experts)
+ARCHS = [("qwen2-moe-a2.7b", True), ("deepseek-v3-671b", True),
+         ("hymba-1.5b", False), ("chatglm3-6b", False),
+         ("deepseek-67b", False), ("musicgen-medium", False),
+         ("internvl2-26b", False)]
+# a top-k choice that differs between the card and the CPU must come from
+# a near-tie: float32 sums in another order move a probability by ~1e-7
+FLIP_GAP = 1e-5
+
+
+@contextlib.contextmanager
+def _routing(replay=None):
+    """While open, every MoE router call's own top-k choices and its
+    probabilities' k-th and (k+1)-th values, on the CPU, in call order.
+    With ``replay`` (the calls of another run), each call then takes that
+    run's choices instead of its own, its gates read from its own
+    probabilities at them: both runs follow one routing, so a near-tie
+    that falls the other way on one device leaves no row uncompared."""
+    from repro_torch.models import moe
+    orig, calls = moe.router_probs, []
+
+    def traced(cfg, w, x2d):
+        gates, idx, logits = orig(cfg, w, x2d)
+        probs = torch.softmax(logits, -1)
+        top = torch.topk(probs, cfg.moe.top_k + 1, -1)
+        calls.append((idx.cpu(), top.values[:, -2:].cpu()))
+        if replay is not None:
+            idx = replay[len(calls) - 1][0].to(idx.device)
+            gates = probs.gather(-1, idx)
+            if cfg.moe.norm_topk_prob:
+                gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
+        return gates, idx, logits
+    moe.router_probs = traced
+    try:
+        yield calls
+    finally:
+        moe.router_probs = orig
+
+
+def _flips(card_calls, cpu_calls, sched, layers):
+    """[(position, layer, card set, CPU set, CPU gap)] of every row whose
+    top-k set differs between the devices (batch 1; call i is forward
+    i // layers, layer i % layers)."""
+    rows = []
+    for i, ((ci, _), (wi, wt)) in enumerate(zip(card_calls, cpu_calls)):
+        lo, layer = sched[i // layers][0], i % layers
+        for r in range(ci.shape[0]):
+            a, b = set(ci[r].tolist()), set(wi[r].tolist())
+            if a != b:
+                rows.append((lo + r, layer, a, b,
+                             float(wt[r, 0] - wt[r, 1])))
+    return rows
+
+
+def phase_archs(dev, card: str):
+    """Each configuration of ARCHS at full width, 2 layers, random fp32
+    weights from SEED: prefill 100, Pass-3 partial prefill 40 and 8 decode
+    steps on the card against the same code on the CPU (MODEL_TOL), fed
+    tokens or, where the frontend is stubbed, seeded embeddings; on the
+    paged pool too where marked (a verify chunk at the end). K1/K2 (K3-K5
+    on the pool) must launch wherever the attention is GQA over a linear
+    cache. The CPU run replays the card's MoE top-k choices, so the
+    logits are held at every row; each choice the CPU would have made
+    otherwise is printed and must be a near-tie (FLIP_GAP)."""
+    for name, paged in ARCHS:
+        cfg = two_layer(name)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params_dev = init_params(cfg, gen, torch.float32, dev)
+        params_cpu = tree_to(params_dev, "cpu")
+        rs = np.random.RandomState(SEED)
+        toks = rs.standard_normal((152, cfg.d_model)).astype(np.float32) \
+            if cfg.embed_stub else rs.randint(0, cfg.vocab_size, 152)
+        spec = cfg.stages[0].pattern[0]
+        gqa_linear = cfg.attention_kind == "gqa" and spec.window is None
+        layers = cfg.num_layers if cfg.moe is not None and spec.moe else 0
+        forms = [False, True] if paged else [False]
+        for form in forms:
+            sched = SCHED + ([(148, 152)] if form else [])
+            kern = PAGED if form else [flash_prefill, decode_attention]
+            n0 = [fn.launches for fn in kern]
+            with _routing() as card_calls:
+                got, _ = run_model(cfg, params_dev, dev, toks, paged=form,
+                                   verify_tail=form)
+            torch.cuda.synchronize()
+            n = [fn.launches - k for fn, k in zip(kern, n0)]
+            with _routing(card_calls) as cpu_calls:
+                want, _ = run_model(cfg, params_cpu, "cpu", toks, paged=form,
+                                    verify_tail=form)
+            flips = _flips(card_calls, cpu_calls, sched, layers) \
+                if layers else []
+            err = _max_err(got, want)
+            scale = max(w.abs().max().item() for w in want)
+            finite = all(torch.isfinite(g).all().item() for g in got)
+            names = [fn.__name__ for fn in kern]
+            what = "paged pool" if form else "dense cache"
+            print(f"[archs] {cfg.name} (d={cfg.d_model}, H={cfg.num_heads}, "
+                  f"K={cfg.num_kv_heads}, {cfg.attention_kind}, "
+                  f"{spec.kind}{', MoE' if spec.moe else ''}"
+                  f"{', window' if spec.window else ''}, 2 layers) on the "
+                  f"{what}: card vs CPU max |dlogits| {err:.3e} over "
+                  f"|logits| <= {scale:.3f} (tolerance {MODEL_TOL:g}) at "
+                  f"every row; launches " + ", ".join(
+                      f"{k} {v}" for k, v in zip(names, n)) + f" [{card}]")
+            for p, layer, a, b, gap in flips:
+                print(f"[archs]   top-k flip at position {p}, layer {layer}:"
+                      f" card {sorted(a)} vs CPU {sorted(b)}, CPU prob gap "
+                      f"{gap:.3e} (the CPU run took the card's)")
+            if layers:
+                gaps = torch.cat([t[:, 0] - t[:, 1] for _, t in cpu_calls])
+                print(f"[archs]   routing: {len(card_calls)} router calls, "
+                      f"{len(flips)} rows with another top-{cfg.moe.top_k} "
+                      f"set on the card; smallest CPU prob gap between the "
+                      f"k-th and (k+1)-th expert {gaps.min().item():.3e}")
+            bad = [f for f in flips if f[4] >= FLIP_GAP]
+            if not finite or not (err <= MODEL_TOL) or bad:
+                raise AssertionError(f"archs {cfg.name} {what}: err {err}, "
+                                     f"finite {finite}, flips {bad}")
+            if gqa_linear and min(n) <= 0:
+                raise AssertionError(f"archs {cfg.name} {what}: launches "
+                                     f"{dict(zip(names, n))}")
+        del params_dev, params_cpu
+        _free()
+
+
+# ---------------------------------------------------------------------------
+# phase 9: Qwen1.5-MoE-A2.7B whole as naive-RAG's core LLM ([moe])
+
+QWEN = "qwen2-moe-a2.7b"
+HYMBA = "hymba-1.5b"
+
+
+def _layer0(tree):
+    """The first layer's tensors of a stacked params subtree."""
+    return {k: v[0] if torch.is_tensor(v) else _layer0(v)
+            for k, v in tree.items()}
+
+
+def _time_dispatch(card: str):
+    """One Qwen MoE layer's routed dispatch, times the model's layers, at
+    a decode step of the dense path's batch bucket (4 tokens) and at a k=3
+    verify chunk of it (16 tokens), timed beside the reference's
+    all-experts formulation on the same inputs; the bound is the selected
+    experts' fp32 weight bytes over the card's memory rate. The engines
+    step on threads of their own, whose host ranges the profiler does not
+    record by default (and recording them all costs minutes of parsing),
+    so the dispatch is timed here on the engine's own weights."""
+    from repro_torch.models import moe
+
+    def timed(core):
+        cfg, L = core.cfg, core.cfg.num_layers
+        p = _layer0(core.params["stages"][0][0]["moe"])
+        d, f = cfg.d_model, cfg.moe.d_expert
+        gen = torch.Generator(device=core.device).manual_seed(SEED)
+        for T, what in ((4, "a decode step"), (16, "a k=3 verify chunk")):
+            x = torch.randn((T, d), generator=gen, device=core.device)
+            with torch.inference_mode():
+                got, _ = moe.routed(cfg, p, x)
+                want, _ = moe.routed_dense_plain(cfg, p, x)
+                err = (got - want).abs().max().item() / \
+                    max(1e-30, want.abs().max().item())
+                experts = len(set(moe.router_probs(cfg, p["router"], x)[1]
+                                  .flatten().tolist()))
+                bound = experts * 3 * d * f * 4 / HBM_BYTES_PER_S * 1e3
+                dev_ms = device_ms(lambda: moe.routed(cfg, p, x))
+                plain_ms = device_ms(
+                    lambda: moe.routed_dense_plain(cfg, p, x))
+                wall_ms = cuda_ms(lambda: moe.routed(cfg, p, x))
+                alone = moe.routed(cfg, p, x[:1])[0]
+                apart = (got[:1] - alone).abs().max().item() / \
+                    max(1e-30, alone.abs().max().item())
+            print(f"[moe] MoE dispatch at {what} (batch 4, {T} tokens, "
+                  f"{experts} distinct experts of {cfg.moe.num_experts}), "
+                  f"x {L} layers: selected pairs device "
+                  f"{_fmt(dev_ms and dev_ms * L)}, wall {wall_ms * L:.3f} "
+                  f"ms (one host sync per layer); the reference's "
+                  f"all-experts form device "
+                  f"{_fmt(plain_ms and plain_ms * L)}; bound (the selected "
+                  f"experts' fp32 weights at {HBM_BYTES_PER_S / 1e12:.2f} "
+                  f"TB/s) {bound * L:.3f} ms; relative max |dout| against "
+                  f"the all-experts form {err:.2e}; the first token's "
+                  f"output alone against in this batch, relative max "
+                  f"|dout| {apart:.2e} (the experts' slices change shape) "
+                  f"[{card}]")
+            if not err <= 1e-5:
+                raise AssertionError(f"MoE dispatch vs all experts: {err}")
+    return timed
+
+
+def _paged_vs_dense(card: str):
+    """The engine's whole model, on its own weights, on a dense cache and on
+    a paged pool read through a shuffled table, fed the same fixed tokens
+    (run_model's schedule and a verify chunk at the end). Each form first
+    takes its own routing: printed are where a top-k choice first differs
+    between the two, its probability gap, and how many rows' greedy
+    tokens agree before and from there. Then the paged form replays the
+    dense form's routing and is held against it at every row within
+    MODEL_TOL of the logits' scale: a fault of the paged path at depth
+    shows there, and the answers of the two serve paths, which differ
+    (printed by the paged phase), are read against this."""
+    def check(core):
+        cfg, dev, L = core.cfg, core.device, core.cfg.num_layers
+        toks = np.random.RandomState(SEED).randint(0, cfg.vocab_size, 152)
+        sched = SCHED + [(148, 152)]
+        run = functools.partial(run_model, cfg, core.params, dev, toks,
+                                verify_tail=True)
+        with _routing() as dense_calls:
+            dense, _ = run()
+        with _routing() as paged_calls:
+            own, _ = run(paged=True)
+        with _routing(dense_calls):
+            paged, _ = run(paged=True)
+        torch.cuda.synchronize()
+        flips = _flips(dense_calls, paged_calls, sched, L)
+        first = min(flips, default=None, key=lambda f: (f[0], f[1]))
+        top = [torch.cat(o, 1)[0] for o in (dense, own)]
+        agree = (top[0].argmax(-1) == top[1].argmax(-1)).tolist()
+        cut = first[0] if first else len(agree)
+        margin = torch.topk(top[0], 2, -1).values
+        margin = (margin[:, 0] - margin[:, 1]).median().item()
+        scale = max(o.abs().max().item() for o in dense)
+        err = _max_err(paged, dense)
+        finite = all(torch.isfinite(o).all().item() for o in paged + own)
+        where = (f"position {first[0]}, layer {first[1]} (probability gap "
+                 f"{first[4]:.3e})" if first else "no row")
+        print(f"[moe] depth check, {L} layers, 152 positions: on their own "
+              f"routings the dense and paged forms first choose other "
+              f"experts at {where}, {len(flips)} (row, layer) choices "
+              f"differ in all; greedy tokens agree at {sum(agree[:cut])} of "
+              f"{cut} rows before that and {sum(agree[cut:])} of "
+              f"{len(agree) - cut} from there (median top-1 margin "
+              f"{margin:.3f} over |logits| <= {scale:.3f}) [{card}]")
+        print(f"[moe] depth check, the paged form replaying the dense "
+              f"form's routing: max |dlogits| {err:.3e} at every row over "
+              f"|logits| <= {scale:.3f} (tolerance {MODEL_TOL:g} x "
+              f"{scale:.3f}) [{card}]")
+        if not finite or not err <= MODEL_TOL * scale:
+            raise AssertionError(f"paged vs dense at depth: err {err}, "
+                                 f"scale {scale}, finite {finite}")
+    return check
+
+
+def _grouping(card: str, steps: int = 32):
+    """The engine's whole model decoding greedily from a 100-token prompt
+    on the dense cache, alone and as row 0 of a batch of 4 (three other
+    seeded prompts): the same kernels and the same tokens in, only the
+    grouping differs, as it does between the two serve paths (batch
+    buckets, 4-token verify chunks, 128-token prefill chunks). Printed:
+    how far the prompt's last logits differ, the step at which row 0's
+    greedy tokens first part, and row 0's first top-k choice that
+    differs between the two runs with its probability gap. Printed only:
+    it reads why the paths' answers part."""
+    def run(core, toks):
+        cfg, dev = core.cfg, core.device
+        B, S = toks.shape
+        cache = kvc.init_cache(cfg, B, T, device=dev)
+        out = []
+        with _routing() as calls, torch.inference_mode():
+            logits, cache = apply_model(cfg, core.params, torch.as_tensor(
+                toks, device=dev), cache, 0)
+            first = logits[0, -1].float().cpu()
+            for i in range(steps):
+                nxt = logits[:, -1].argmax(-1)
+                out.append(int(nxt[0]))
+                logits, cache = apply_model(cfg, core.params, nxt[:, None],
+                                            cache, S + i)
+        return out, calls, first
+
+    def check(core):
+        L, S = core.cfg.num_layers, 100
+        toks = np.random.RandomState(SEED + 1).randint(
+            0, core.cfg.vocab_size, (4, S))
+        (alone, ca, la), (batch, cb, lb) = run(core, toks[:1]), \
+            run(core, toks)
+        part = next((i for i, (a, b) in enumerate(zip(alone, batch))
+                     if a != b), None)
+        where = "nowhere"
+        for j, ((ia, ta), (ib, _)) in enumerate(zip(ca, cb)):
+            step, layer = j // L - 1, j % L     # step -1: the prompt
+            rows = [r for r in range(S if step < 0 else 1)
+                    if set(ia[r].tolist()) != set(ib[r].tolist())]
+            if rows:
+                r = rows[0]
+                at = f"prompt row {r}" if step < 0 else f"step {step}"
+                where = (f"{at}, layer {layer}, probability gap "
+                         f"{float(ta[r, 0] - ta[r, 1]):.3e}")
+                break
+        tokens = (f"agree at all {steps} steps" if part is None
+                  else f"part at step {part} of {steps}")
+        print(f"[moe] grouping check, {L} layers, greedy from a {S}-token "
+              f"prompt alone and as row 0 of a batch of 4: the prompt's "
+              f"last logits differ by {(la - lb).abs().max().item():.3e} "
+              f"over |logits| <= {la.abs().max().item():.3f}; its tokens "
+              f"{tokens}; its first top-k choice that differs: {where} "
+              f"[{card}]")
+    return check
+
+
+def _assert_empty_card(tag: str):
+    _free()
+    used = torch.cuda.memory_allocated()
+    print(f"[{tag}] memory_allocated before the engine: "
+          f"{used / 2**30:.3f} GiB")
+    if used >= 2 ** 30:
+        raise AssertionError(f"{tag}: {used / 2**30:.2f} GiB still "
+                             f"allocated before building the engine")
+
+
+@contextlib.contextmanager
+def _core_prompts():
+    """While open, the text of every prefill task the core LLM is given
+    (monolithic or chunked), in arrival order."""
+    texts, orig = [], (LLMEngine.op_prefill, LLMEngine.submit_prefill)
+
+    def op_prefill(self, task_batch):
+        if self.name == "core_llm":
+            texts.extend(t["text"] for t in task_batch)
+        return orig[0](self, task_batch)
+
+    def submit_prefill(self, task, on_done=None):
+        if self.name == "core_llm":
+            texts.append(task["text"])
+        return orig[1](self, task, on_done)
+    LLMEngine.op_prefill, LLMEngine.submit_prefill = op_prefill, \
+        submit_prefill
+    try:
+        yield texts
+    finally:
+        LLMEngine.op_prefill, LLMEngine.submit_prefill = orig
+
+
+def _compare_prompts(dense, paged, card: str):
+    """Prints how the core LLM's prompts on the two paths compare, as
+    multisets: naive-RAG asks for one candidate answer per retrieved
+    context, then combines the candidates in one more prompt, so a
+    candidate that differs by one greedy token changes that prompt
+    and the whole answer after it."""
+    left = list(dense)
+    for t in paged:
+        if t in left:
+            left.remove(t)
+    rest = [t for t in paged if t not in dense]
+    words = []
+    for t in rest:
+        near = max(left, key=lambda u: sum(
+            a == b for a, b in zip(u.split(), t.split())), default="")
+        pairs = list(zip(near.split(), t.split()))
+        words.append(f"{sum(a != b for a, b in pairs)} of {len(pairs)}")
+    print(f"[moe-paged] core LLM prompts: {len(paged) - len(rest)} of "
+          f"{len(paged)} equal to the dense path's; the {len(rest)} others "
+          f"begin " + ", ".join(sorted({repr(' '.join(t.split()[:2]))
+                                        for t in rest}))
+          + "; words differing from the nearest dense prompt: "
+          + ", ".join(words) + f" [{card}]")
+
+
+def phase_moe(dev, card: str) -> dict:
+    """Naive-RAG under Teola with the full 24-layer Qwen1.5-MoE-A2.7B
+    (53.3 GiB of fp32 weights) as the core LLM: the dense path (K1, K2),
+    then, that engine freed, the paged path (K3, K4, K5). Never two Qwen
+    engines at once. Returns the launches per path."""
+    out = {}
+    _assert_empty_card("moe")
+    checks = (_time_dispatch(card), _paged_vs_dense(card), _grouping(card))
+    with _core_prompts() as dense_prompts:
+        out["dense"], answers = phase_serve(
+            dev, card, QWEN, (flash_prefill, decode_attention), "moe",
+            lambda core: [check(core) for check in checks])
+    _assert_empty_card("moe-paged")
+    with _core_prompts() as paged_prompts:
+        out["paged"] = phase_serve_paged(dev, card, answers, QWEN,
+                                         "moe-paged")
+    _compare_prompts(dense_prompts, paged_prompts, card)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: Hymba-1.5B whole as naive-RAG's core LLM ([hybrid])
+
+def _time_mamba(card: str):
+    """One Hymba layer's Mamba branch, times the model's layers, at a
+    decode step (batch 4) and at a 512-token prefill bucket (batch 4): the
+    step loop launches once per token."""
+    from repro_torch.models import ssm
+
+    def timed(core):
+        cfg, L = core.cfg, core.cfg.num_layers
+        p = _layer0(core.params["stages"][0][0]["mamba"])
+        d, s = cfg.d_model, cfg.ssm
+        gen = torch.Generator(device=core.device).manual_seed(SEED)
+        h = torch.zeros((4, d, s.state_dim), device=core.device)
+        c = torch.zeros((4, s.conv_dim - 1, d), device=core.device)
+        for S, iters in ((1, 20), (512, 3)):
+            x = torch.randn((4, S, d), generator=gen, device=core.device)
+            with torch.inference_mode():
+                run = lambda: ssm.mamba_branch(cfg, p, x, h, c)  # noqa: E731
+                dev_ms = device_ms(run, iters=iters, warmup=1)
+                wall_ms = cuda_ms(run, iters=iters, warmup=1)
+            print(f"[hybrid] Mamba branch at S={S} (batch 4), x {L} layers:"
+                  f" device {_fmt(dev_ms and dev_ms * L)}, wall "
+                  f"{wall_ms * L:.3f} ms [{card}]")
+    return timed
+
+
+def phase_hybrid(dev, card: str):
+    """Naive-RAG under Teola with the full 32-layer Hymba-1.5B as the core
+    LLM on the dense path: windowed attention (the ring buffer, plain
+    attention on every device) and the Mamba branch's step loop."""
+    _assert_empty_card("hybrid")
+    phase_serve(dev, card, HYMBA, (), "hybrid", _time_mamba(card))
+
+
+# ---------------------------------------------------------------------------
+# phase 11: every app under every scheme ([apps])
 
 TINYLLAMA = "tinyllama-1.1b"
 ALL_SCHEMES = list(serve_cli.SCHEMES)
@@ -1326,7 +1839,7 @@ def _decoded(engines) -> int:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the serving layers through the serve entry point ([layers])
+# phase 12: the serving layers through the serve entry point ([layers])
 
 def _audit_pools(tag: str, engines) -> list:
     """Every paged replica after release: a clean audit, 0 leaked blocks,
@@ -1585,26 +2098,33 @@ def main() -> int:
         phase_rwkv_kernel(dev)
         phase_serve(dev, card, RWKV, (rwkv6_scan,), "rwkv-serve")
         return 0
-    phase_toolchain(card)
-    phase_build()
-    kres = phase_kernels(dev)
-    kres.update(phase_paged_kernels(dev))
-    phase_model(dev)
-    launches, answers = phase_serve(dev, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches.update(phase_serve_paged(dev, card, answers))
-    kres["rwkv6_scan"] = phase_rwkv_kernel(dev)
-    phase_rwkv_model(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches.update(phase_serve(dev, card, RWKV, (rwkv6_scan,),
-                                "rwkv-serve")[0])
-    _free()
-    phase_apps(dev, card)
-    _free()
-    phase_layers(dev, card)
-    phase_exit(card)
+    start = time.time()
+
+    def timed(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        _free()
+        print(f"[time] {name}: {time.time() - t0:.1f} s (script "
+              f"{time.time() - start:.1f} s)")
+        return out
+
+    timed("toolchain", phase_toolchain, card)
+    timed("build", phase_build)
+    kres = timed("kernels", phase_kernels, dev)
+    kres.update(timed("paged kernels", phase_paged_kernels, dev))
+    timed("model", phase_model, dev)
+    launches, answers = timed("serve", phase_serve, dev, card)
+    launches.update(timed("paged", phase_serve_paged, dev, card, answers))
+    kres["rwkv6_scan"] = timed("rwkv kernel", phase_rwkv_kernel, dev)
+    timed("rwkv model", phase_rwkv_model, dev)
+    launches.update(timed("rwkv-serve", phase_serve, dev, card, RWKV,
+                          (rwkv6_scan,), "rwkv-serve")[0])
+    timed("archs", phase_archs, dev, card)
+    timed("moe", phase_moe, dev, card)
+    timed("hybrid", phase_hybrid, dev, card)
+    timed("apps", phase_apps, dev, card)
+    timed("layers", phase_layers, dev, card)
+    timed("exit", phase_exit, card)
     paged_src = "src/repro_torch/csrc/paged_attention.cu"
     sources = {"flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                                  "src/repro/kernels/flash_prefill.py:75"),

@@ -12,16 +12,24 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import tree_map
+from repro_torch.models.common import leaf_dtype, tree_map
 from repro_torch.models.encoder import EncoderConfig
 
 
 def to_torch(tree, device="cuda", dtype=None):
-    """Map every numpy leaf of a dict/list tree to a torch tensor."""
-    def leaf(a):
-        t = torch.from_numpy(np.array(a, copy=True))
-        return t.to(device=device, dtype=dtype or t.dtype)
-    return tree_map(leaf, tree)
+    """Map every numpy leaf of a dict/list tree to a torch tensor, cast to
+    ``dtype`` where given, except the leaves that the init code, too,
+    keeps in float32 (``models.common.leaf_dtype``)."""
+    def conv(node, name):
+        if isinstance(node, dict):
+            return {k: conv(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v, name) for v in node]
+        t = torch.from_numpy(np.array(node, copy=True))
+        if dtype is None:
+            return t.to(device=device)
+        return t.to(device=device, dtype=leaf_dtype(name, dtype))
+    return conv(tree, None)
 
 
 def tree_to(tree, device):

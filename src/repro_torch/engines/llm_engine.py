@@ -27,10 +27,15 @@ Inside ``apply_model`` the dense attention layers go through the ported
 kernels, and the paged layers through ``chunk_prefill_attention``
 (chunks), ``verify_attention`` (speculative verify chunks) and
 ``paged_decode_attention`` (single tokens), and RWKV-6 layers through
-``rwkv6_scan`` (dense mode only: their per-sequence recurrent state lives
-in the dense cache and is stacked, forked and unstacked like K/V), on
-CUDA; through their plain versions on the CPU. Every forward runs under
-``torch.inference_mode()``.
+``rwkv6_scan``, on CUDA; through their plain versions on the CPU. Every
+forward runs under ``torch.inference_mode()``. The engine handles every
+cache element by name through the tree helpers, whatever the layer: MLA's
+compressed ``ckv`` / ``krope`` (dense or paged), and the per-sequence
+recurrent state of RWKV-6 (``state``, ``sx_tm``, ``sx_cm``) and of
+Hymba's Mamba branch (``ssm_h``, ``ssm_conv``, beside its K/V), which
+lives in the dense cache and is stacked, forked and unstacked like K/V.
+Recurrent layers cannot be paged: such an engine refuses ``paged=True``,
+as the reference's does.
 
 The serving-layer hooks are the reference's: SLO scheduling (a policy
 armed by ``serving/slo.py::attach_slo``; preemption frees a sequence's KV

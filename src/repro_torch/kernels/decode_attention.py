@@ -152,7 +152,8 @@ def decode_attention(q, k, v, length, *, window=None, cap=None, scale=None):
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     if hd not in (64, 128) or H // K > MAX_GROUP:
         raise ValueError(f"decode_attention: head dim {hd} not in (64, 128)"
-                         f" or group {H // K} > {MAX_GROUP}")
+                         f" or group {H // K} > {MAX_GROUP} (hd 256: "
+                         f"ROADMAP.md Queue 2, gaps)")
     if k.dtype != v.dtype or not (k.device == v.device == q.device):
         raise ValueError("decode_attention: k/v dtype or device mismatch")
     if scale is None:

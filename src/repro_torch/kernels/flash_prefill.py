@@ -170,7 +170,8 @@ def flash_prefill(q, k, v, *, prefix_len=0, window=None, cap=None,
         raise ValueError(f"flash_prefill: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     if hd not in (64, 128):
-        raise ValueError(f"flash_prefill: head dim {hd} not in (64, 128)")
+        raise ValueError(f"flash_prefill: head dim {hd} not in (64, 128) "
+                         f"(hd 256: ROADMAP.md Queue 2, gaps)")
     if k.dtype != v.dtype or not (k.device == v.device == q.device):
         raise ValueError("flash_prefill: k/v dtype or device mismatch")
     if scale is None:

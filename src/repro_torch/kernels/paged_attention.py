@@ -123,7 +123,8 @@ def check_paged_args(what, q, k_pool, v_pool, block_tables, rows=1,
                          f"tables {tuple(block_tables.shape)}")
     if hd not in (64, 128) or rows > max_rows:
         raise ValueError(f"{what}: head dim {hd} not in (64, 128) or "
-                         f"{rows} query rows per kv head > {max_rows}")
+                         f"{rows} query rows per kv head > {max_rows} "
+                         f"(hd 256: ROADMAP.md Queue 2, gaps)")
     if k_pool.dtype != v_pool.dtype or \
             not (k_pool.device == v_pool.device == block_tables.device
                  == q.device):

@@ -27,7 +27,11 @@ CPU tensors they run their plain PyTorch versions. Windowed (ring-buffer)
 dense layers and the no-cache training call use the plain masked
 attention on every device.
 
-MLA and MoE are not ported yet (ROADMAP.md Queue 1, item 10).
+MLA (DeepSeek-V3's multi-head latent attention, ``mla_layer``) runs in
+the absorbed form with its compressed cache (``ckv``, ``krope``) dense or
+paged. Its attention core is plain PyTorch on every device: the reference
+computes it with XLA einsums and has no Pallas kernel for it, so there is
+no kernel to port and none is bypassed.
 """
 from __future__ import annotations
 
@@ -37,8 +41,10 @@ from repro_torch.kernels.chunk_prefill import chunk_prefill_attention
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.paged_attention import (paged_decode_attention,
+                                                 paged_gather,
                                                  verify_attention)
-from repro_torch.models.common import apply_rope, dense_init, softcap
+from repro_torch.models.common import (apply_rope, dense_init, rms_norm,
+                                       softcap)
 from repro_torch.serving import kv_cache as kvc
 
 NEG_INF = -2.0e38
@@ -178,4 +184,103 @@ def gqa_layer(cfg, spec, p, x, cache, pos, block_tables=None,
                                   total_len=pos + S, cap=cap, scale=scale)
         new_cache = {"k": kb, "v": vb}
     out = o.reshape(B, S, H * hd) @ p["wo"]
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3): absorbed formulation throughout.
+#
+# Scores are computed in the compressed kv_lora space, so per-head K/V are
+# never expanded over the context:
+#   q_eff = q_nope @ W_kv_b[k-part]      (B,S,H,r)
+#   s     = q_eff . ckv + q_rope . k_rope
+#   ctx   = softmax(s) . ckv             (B,S,H,r)
+#   out_h = ctx @ W_kv_b[v-part]
+
+def init_mla_params(generator, cfg, dtype, device, repeat: int):
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+
+    def w(shape):
+        return dense_init(generator, (repeat, *shape), dtype, device,
+                          fan_in=shape[0])
+
+    def zeros(n):
+        return torch.zeros((repeat, n), dtype=dtype, device=device)
+
+    return {
+        "wq_a": w((d, m.q_lora_rank)),
+        "q_norm": zeros(m.q_lora_rank),
+        "wq_b": w((m.q_lora_rank, H * qk_hd)),
+        "wkv_a": w((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+        "kv_norm": zeros(m.kv_lora_rank),
+        "wkv_b": w((m.kv_lora_rank,
+                    H * (m.qk_nope_head_dim + m.v_head_dim))),
+        "wo": w((H * m.v_head_dim, d)),
+    }
+
+
+def _mla_core(q_eff, q_rope, ckv, krope, q_pos, k_pos, scale, window):
+    """q_eff (B,Sq,H,r); q_rope (B,Sq,H,p); ckv (B,T,r); krope (B,T,p)."""
+    s = (torch.einsum("bshr,btr->bhst", q_eff.float(), ckv.float())
+         + torch.einsum("bshp,btp->bhst", q_rope.float(), krope.float())) \
+        * scale
+    mask = position_mask(q_pos, k_pos, window)              # (B,Sq,Skv)
+    s = torch.where(mask[:, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhst,btr->bshr", p, ckv.float())
+    return ctx.to(q_eff.dtype)
+
+
+def mla_layer(cfg, spec, p, x, cache, pos, block_tables=None):
+    """x (B,S,d). cache: {'ckv' (B,T,r), 'krope' (B,T,p)} or None, or the
+    paged pools {'ckv' (nb,bs,r), 'krope' (nb,bs,p)} with
+    ``block_tables``. Cache writes happen in place. Returns (out,
+    new_cache)."""
+    m = cfg.mla
+    B, S, d = x.shape
+    H = cfg.num_heads
+    nope = m.qk_nope_head_dim
+    scale = (nope + m.qk_rope_head_dim) ** -0.5
+
+    cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["wq_b"]).reshape(B, S, H, nope + m.qk_rope_head_dim)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    pos = kvc.batch_pos(pos, B, x.device)
+    positions = pos[:, None] + torch.arange(S, device=x.device)[None, :]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta, "neox")
+
+    kv_a = x @ p["wkv_a"]
+    ckv_new = rms_norm(kv_a[..., :m.kv_lora_rank], p["kv_norm"],
+                       cfg.norm_eps)
+    krope_new = apply_rope(kv_a[..., m.kv_lora_rank:], positions,
+                           cfg.rope_theta, "neox")
+
+    wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, H, nope + m.v_head_dim)
+    wk = wkv_b[..., :nope]                        # (r, H, nope)
+    wv = wkv_b[..., nope:]                        # (r, H, v)
+    q_eff = torch.einsum("bshn,rhn->bshr", q_nope, wk)
+
+    if cache is None:
+        ckv, krope, k_pos = ckv_new, krope_new, positions
+        new_cache = None
+    elif block_tables is not None:
+        cp = paged_write(cache["ckv"], ckv_new, block_tables, positions)
+        kp = paged_write(cache["krope"], krope_new, block_tables, positions)
+        new_cache = {"ckv": cp, "krope": kp}
+        ckv = paged_gather(cp, block_tables).to(x.dtype)
+        krope = paged_gather(kp, block_tables).to(x.dtype)
+        k_pos = kvc.slot_positions_linear(ckv.shape[1], pos + S)
+    else:
+        cb = kvc.write_linear(cache["ckv"], ckv_new, pos)
+        kb = kvc.write_linear(cache["krope"], krope_new, pos)
+        new_cache = {"ckv": cb, "krope": kb}
+        ckv, krope = cb.to(x.dtype), kb.to(x.dtype)
+        k_pos = kvc.slot_positions_linear(ckv.shape[1], pos + S)
+
+    ctx = _mla_core(q_eff, q_rope, ckv, krope, positions, k_pos, scale,
+                    spec.window)
+    out_h = torch.einsum("bshr,rhv->bshv", ctx, wv)
+    out = out_h.reshape(B, S, H * m.v_head_dim) @ p["wo"]
     return out, new_cache

@@ -9,6 +9,19 @@ import torch
 import torch.nn.functional as F
 
 
+# leaves that the reference initialises in float32 whatever the model's
+# dtype (the MoE router, the Mamba branch's dt_bias / A_log / D, RWKV-6's
+# decay base, bonus and group-norm scale): the init functions and
+# bridge.to_torch both take their dtype from leaf_dtype
+FP32_LEAVES = frozenset({"router", "dt_bias", "A_log", "D", "w_base", "u",
+                         "gn_scale"})
+
+
+def leaf_dtype(name: str, dtype):
+    """The dtype of the params leaf ``name`` in a model of ``dtype``."""
+    return torch.float32 if name in FP32_LEAVES else dtype
+
+
 def tree_map(fn, *trees):
     """``fn`` over the leaves of nested dicts/lists (params, caches) of
     the same structure."""
@@ -67,28 +80,28 @@ def apply_rope(x, positions, theta: float, kind: str = "neox"):
     """x: (B, S, H, hd) or (B, S, hd); positions: (S,) or (B, S) int.
 
     kind: 'neox' rotates the full head dim (half-split layout),
-          'none' is identity. ('half', ChatGLM's 2D RoPE, is not ported
-          yet: ROADMAP.md Queue 1, item 10.)
+          'half' rotates only the first half of head dims (ChatGLM 2D RoPE),
+          'none' is identity.
     """
     if kind == "none":
         return x
-    if kind != "neox":
-        raise NotImplementedError(
-            f"rope kind {kind!r} is not ported yet (ROADMAP.md Queue 1, "
-            f"item 10)")
+    if kind not in ("neox", "half"):
+        raise ValueError(f"unknown rope kind {kind!r}")
     hd = x.shape[-1]
-    inv = rope_freqs(hd, theta, hd, device=x.device)
+    rd = hd if kind == "neox" else hd // 2
+    inv = rope_freqs(hd, theta, rd, device=x.device)
     positions = torch.as_tensor(positions, device=x.device)
     if positions.ndim == 1:
         positions = positions[None]     # (1, S)
-    ang = positions.float()[..., None] * inv          # (B|1, S, hd/2)
+    ang = positions.float()[..., None] * inv          # (B|1, S, rd/2)
     if x.ndim == 4:                     # head axis present
-        ang = ang[..., None, :]         # (B|1, S, 1, hd/2)
+        ang = ang[..., None, :]         # (B|1, S, 1, rd/2)
     cos, sin = torch.cos(ang), torch.sin(ang)
-    x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
+    rot, rest = x[..., :rd], x[..., rd:]
+    x1, x2 = rot[..., : rd // 2], rot[..., rd // 2:]
     r1 = x1 * cos - x2 * sin
     r2 = x2 * cos + x1 * sin
-    return torch.cat([r1.to(x.dtype), r2.to(x.dtype)], dim=-1)
+    return torch.cat([r1.to(x.dtype), r2.to(x.dtype), rest], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -102,12 +115,14 @@ def dense_init(generator, shape, dtype, device, scale: float | None = None,
     if fan_in is None:
         fan_in = shape[0] if len(shape) >= 2 else shape[-1]
     std = (scale if scale is not None else 1.0) / (fan_in ** 0.5)
+    # scaled in place: a stacked expert tensor (Qwen1.5-MoE's w_gate is
+    # 16.6 GB in fp32) is never held twice
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=generator.device) * std
+                    device=generator.device).mul_(std)
     return w.to(device=device, dtype=dtype)
 
 
 def embed_init(generator, shape, dtype, device):
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=generator.device) * 0.02
+                    device=generator.device).mul_(0.02)
     return w.to(device=device, dtype=dtype)

@@ -1,15 +1,19 @@
-"""Recurrent sequence mixers (PyTorch counterpart of the RWKV-6 half of
-``repro/models/ssm.py``): RWKV-6 (Finch) time mix and channel mix.
+"""Recurrent sequence mixers (PyTorch counterpart of
+``repro/models/ssm.py``): RWKV-6 (Finch) time mix and channel mix, and
+the Mamba-style selective SSM branch of Hymba's hybrid layers.
 
-The reference runs the WKV recurrence through ``_chunked_scan``, an XLA
+The reference runs both recurrences through ``_chunked_scan``, an XLA
 execution strategy (an outer scan over chunks around a checkpointed inner
-scan). The port calls ``kernels.rwkv6_scan`` instead: the hand-written
-CUDA kernel on the card, its plain float32 loop on the CPU. Both compute
-the same recurrence, so ``_chunked_scan`` has no counterpart here.
+scan). For RWKV-6 the port calls ``kernels.rwkv6_scan`` instead: the
+hand-written CUDA kernel on the card, its plain float32 loop on the CPU.
+The Mamba scan has no Pallas kernel in the reference, so the port runs it
+as plain PyTorch on every device: a step loop over the sequence (the
+reference's ``lax.scan``), one fused multiply-add launch per step, with
+the decays and inputs of every step computed up front.
 
-Decode (S == 1) is a single O(1) state update. The Mamba-style branch
-(``init_mamba_params``, ``mamba_branch``: Hymba's hybrid heads) is not
-ported yet (ROADMAP.md Queue 1, item 10).
+Decode (S == 1) is a single O(1) state update. Both branches ignore
+``pos``: their state absorbs every token they are given, padding
+included, as in the reference (ROADMAP.md Queue 3).
 """
 from __future__ import annotations
 
@@ -17,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
-from repro_torch.models.common import dense_init, group_norm_heads
+from repro_torch.models.common import (dense_init, group_norm_heads,
+                                       leaf_dtype)
 
 
 def _token_shift(x, sx):
@@ -45,7 +50,7 @@ def init_rwkv_params(generator, cfg, dtype, device, repeat: int):
         return dense_init(generator, (R, *shape), dtype, device, scale=scale,
                           fan_in=fan_in)
 
-    def full(shape, value, dt):
+    def full(shape, value, dt=dtype):
         return torch.full((R, *shape), value, dtype=dt, device=device)
 
     mix_base = torch.rand((R, 5, d), generator=generator,
@@ -60,11 +65,12 @@ def init_rwkv_params(generator, cfg, dtype, device, repeat: int):
             "wv": dense((d, d), d),
             "wg": dense((d, d), d),
             "wo": dense((d, d), d),
-            "w_base": full((d,), -4.0, torch.float32),
+            "w_base": full((d,), -4.0, leaf_dtype("w_base", dtype)),
             "w_w1": dense((d, L), d),
             "w_w2": dense((L, d), L, scale=0.1),
-            "u": full((H, s.head_dim), 0.0, torch.float32),
-            "gn_scale": full((H, s.head_dim), 1.0, torch.float32),
+            "u": full((H, s.head_dim), 0.0, leaf_dtype("u", dtype)),
+            "gn_scale": full((H, s.head_dim), 1.0,
+                             leaf_dtype("gn_scale", dtype)),
         },
         "cm": {
             "mix_k": full((d,), 0.5, dtype),
@@ -117,3 +123,78 @@ def rwkv_channel_mix(cfg, p, x, sx):
     k = torch.square(F.relu(x_k @ p["wk"]))
     kv = k @ p["wv"]
     return torch.sigmoid(x_r @ p["wr"]) * kv, new_sx
+
+
+# ===========================================================================
+# Mamba-style selective SSM (Hymba's parallel SSM heads)
+
+def init_mamba_params(generator, cfg, dtype, device, repeat: int):
+    """The reference's ``init_mamba_params`` shapes and scales, stacked
+    over ``repeat`` layers (``conv_w (cw, dI)`` has fan-in ``cw``, as the
+    reference's ``dense_init`` takes it). ``dt_bias``, ``A_log`` and ``D``
+    are float32 whatever ``dtype``."""
+    s = cfg.ssm
+    d = cfg.d_model
+    dI = d                       # inner dim == d_model (parallel heads)
+    N, Rk = s.state_dim, s.dt_rank
+    R = repeat
+
+    def dense(shape):
+        return dense_init(generator, (R, *shape), dtype, device,
+                          fan_in=shape[0])
+
+    a = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
+                               device=device))
+    return {
+        "w_in": dense((d, 2 * dI)),
+        "conv_w": dense((s.conv_dim, dI)),
+        "conv_b": torch.zeros((R, dI), dtype=dtype, device=device),
+        "w_x": dense((dI, Rk + 2 * N)),
+        "w_dt": dense((Rk, dI)),
+        "dt_bias": torch.full((R, dI), -4.6,
+                              dtype=leaf_dtype("dt_bias", dtype),
+                              device=device),
+        "A_log": a.expand(R, dI, N).to(leaf_dtype("A_log", dtype)).clone(),
+        "D": torch.ones((R, dI), dtype=leaf_dtype("D", dtype),
+                        device=device),
+        "out_proj": dense((dI, d)),
+    }
+
+
+def mamba_branch(cfg, p, x, h_state, conv_state):
+    """x (B,S,d); h_state (B,dI,N) fp32; conv_state (B,cw-1,dI).
+    Returns (out (B,S,d), h_state, conv_state), new tensors."""
+    s = cfg.ssm
+    B, S, d = x.shape
+    N, cw = s.state_dim, s.conv_dim
+    dI = d
+
+    xz = x @ p["w_in"]
+    x_in, z = xz[..., :dI], xz[..., dI:]
+
+    # causal depthwise conv with carried state
+    ctx = torch.cat([conv_state.to(x.dtype), x_in], dim=1)
+    new_conv_state = ctx[:, -(cw - 1):, :].float()
+    wins = torch.stack([ctx[:, i:i + S, :] for i in range(cw)], dim=2)
+    x_c = F.silu(torch.einsum("bswd,wd->bsd", wins, p["conv_w"])
+                 + p["conv_b"])
+
+    xdb = x_c @ p["w_x"]
+    R = s.dt_rank
+    dt = F.softplus((xdb[..., :R] @ p["w_dt"]).float() + p["dt_bias"])
+    Bc = xdb[..., R:R + N].float()                          # (B,S,N)
+    Cc = xdb[..., R + N:].float()                           # (B,S,N)
+    A = -torch.exp(p["A_log"].float())                      # (dI,N)
+
+    # h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t, y_t = h_t . C_t
+    xf = x_c.float()
+    da = torch.exp(dt[..., None] * A)                       # (B,S,dI,N)
+    dbx = (dt * xf)[..., None] * Bc[:, :, None, :]          # (B,S,dI,N)
+    hs = torch.empty_like(da)
+    h = h_state.float()
+    for t in range(S):
+        h = torch.addcmul(dbx[:, t], da[:, t], h, out=hs[:, t])
+    y = torch.einsum("bsdn,bsn->bsd", hs, Cc)
+    y = y + p["D"] * xf
+    out = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    return out, h.clone(), new_conv_state

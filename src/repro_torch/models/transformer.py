@@ -1,6 +1,5 @@
-"""Dense decoder model: init + apply (PyTorch counterpart of
-``repro/models/transformer.py`` for GQA attention layers with a dense FFN
-and RWKV-6 layers).
+"""Composable decoder model: init + apply for every configuration
+(PyTorch counterpart of ``repro/models/transformer.py``).
 
 Params keep the reference's pytree layout, as a nested dict of tensors:
 ``{'embed', 'final_norm', 'lm_head'?, 'stages': [[elem, ...], ...]}``
@@ -10,13 +9,18 @@ Python loop where the reference scans. The same call serves training
 (cache=None, full causal), chunked prefill (cache + pos offset — Teola's
 Partial/Full Prefilling) and decode (S == 1).
 
+A layer is GQA or MLA attention (``models/attention.py``), in a hybrid
+layer fused with a parallel Mamba branch (Hymba), followed by a dense or
+a mixture-of-experts FFN (``models/moe.py``); or an RWKV-6 layer. Inputs
+are tokens, or float embeddings ``(B, S, d)`` for the configurations
+whose modality frontend is stubbed (``embed_stub``).
+
 ``block_tables`` switches the cache to the paged pool (serving/
 kv_cache.py); ``verify=True`` marks a speculative verify chunk on it.
 
-RWKV-6 layers (``models/ssm.py``) keep a per-sequence recurrent state in
-the dense cache (``state``, ``sx_tm``, ``sx_cm``), updated in place; they
-ignore ``pos``. Hybrid SSM, MLA (dense and paged) and MoE layers and
-embedding inputs are not ported yet (ROADMAP.md Queue 1, item 10).
+Recurrent layers (RWKV-6, the Mamba branch) keep a per-sequence state in
+the dense cache (``state``, ``sx_tm``, ``sx_cm``; ``ssm_h``, ``ssm_conv``),
+updated in place; they ignore ``pos``.
 """
 from __future__ import annotations
 
@@ -24,26 +28,10 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models import ssm
 from repro_torch.models.common import (act_fn, dense_init, embed_init,
                                        rms_norm, softcap, tree_map)
-
-
-def _supported(cfg: ModelConfig, spec: LayerSpec) -> bool:
-    if spec.moe or cfg.embed_stub:
-        return False
-    if spec.kind == "rwkv":
-        return cfg.ssm is not None and cfg.ssm.kind == "rwkv6"
-    return spec.kind == "attn" and cfg.attention_kind == "gqa"
-
-
-def _check_supported(cfg: ModelConfig):
-    for st in cfg.stages:
-        for spec in st.pattern:
-            if not _supported(cfg, spec):
-                raise NotImplementedError(
-                    f"{cfg.name}: only dense GQA and RWKV-6 decoders with "
-                    f"token inputs are ported (ROADMAP.md Queue 1, item 10)")
 
 
 # ---------------------------------------------------------------------------
@@ -52,22 +40,34 @@ def _check_supported(cfg: ModelConfig):
 def init_layer_elem(generator, cfg: ModelConfig, spec: LayerSpec, dtype,
                     device, repeat: int):
     d, f = cfg.d_model, cfg.d_ff
-    zeros = lambda: torch.zeros((repeat, d), dtype=dtype, device=device)  # noqa: E731
+
+    def zeros():
+        return torch.zeros((repeat, d), dtype=dtype, device=device)
+
+    p = {"ln1": zeros(), "ln2": zeros()}
     if spec.kind == "rwkv":
-        return {"ln1": zeros(), "ln2": zeros(),
-                **ssm.init_rwkv_params(generator, cfg, dtype, device, repeat)}
-    return {
-        "ln1": zeros(), "ln2": zeros(),
-        "attn": attn.init_gqa_params(generator, cfg, dtype, device, repeat),
-        "mlp": {
+        p.update(ssm.init_rwkv_params(generator, cfg, dtype, device, repeat))
+        return p
+    init_attn = attn.init_mla_params if cfg.attention_kind == "mla" else \
+        attn.init_gqa_params
+    p["attn"] = init_attn(generator, cfg, dtype, device, repeat)
+    if spec.kind == "hybrid":
+        p["mamba"] = ssm.init_mamba_params(generator, cfg, dtype, device,
+                                           repeat)
+        p["fuse_na"] = zeros()
+        p["fuse_ns"] = zeros()
+    if spec.moe:
+        p["moe"] = moe.init_moe_params(generator, cfg, dtype, device, repeat)
+    else:
+        p["mlp"] = {
             "w_gate": dense_init(generator, (repeat, d, f), dtype, device,
                                  fan_in=d),
             "w_up": dense_init(generator, (repeat, d, f), dtype, device,
                                fan_in=d),
             "w_down": dense_init(generator, (repeat, f, d), dtype, device,
                                  fan_in=f),
-        },
-    }
+        }
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -75,7 +75,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random weights with the reference ``init_params``'s shapes and
     scales, drawn from ``generator`` on the generator's device and placed
     on ``device``."""
-    _check_supported(cfg)
     params = {"embed": embed_init(generator, (cfg.vocab_size, cfg.d_model),
                                   dtype, device),
               "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,
@@ -126,24 +125,55 @@ def _rwkv_layer(cfg, p, x, ce):
     return x, ce
 
 
+def _hybrid_state(cfg, ce, B, device):
+    """The Mamba branch's (h, conv) state: the cache's views, or zeros."""
+    if ce is not None:
+        return ce["ssm_h"], ce["ssm_conv"]
+    s, d = cfg.ssm, cfg.d_model
+    return (torch.zeros((B, d, s.state_dim), dtype=torch.float32,
+                        device=device),
+            torch.zeros((B, s.conv_dim - 1, d), dtype=torch.float32,
+                        device=device))
+
+
 def apply_layer(cfg, spec, p, x, ce, pos, block_tables=None, verify=False):
     """One transformer layer. ce: cache elem dict or None (paged pool
-    elems when ``block_tables`` is given). Returns (x, new_cache_elem)."""
+    elems when ``block_tables`` is given). Returns (x, new_cache_elem,
+    aux_loss), the cache elem updated in place."""
     if spec.kind == "rwkv":
-        return _rwkv_layer(cfg, p, x, ce)
+        return (*_rwkv_layer(cfg, p, x, ce), None)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    a_out, nc = attn.gqa_layer(cfg, spec, p["attn"], h, ce, pos,
-                               block_tables, verify)
-    x = x + a_out
+    if cfg.attention_kind == "mla":
+        a_out, _ = attn.mla_layer(cfg, spec, p["attn"], h, ce, pos,
+                                  block_tables)
+    else:
+        a_out, _ = attn.gqa_layer(cfg, spec, p["attn"], h, ce, pos,
+                                  block_tables, verify)
+    if spec.kind == "hybrid":
+        h_state, conv_state = _hybrid_state(cfg, ce, x.shape[0], x.device)
+        s_out, new_h, new_conv = ssm.mamba_branch(cfg, p["mamba"], h,
+                                                  h_state, conv_state)
+        if ce is not None:
+            h_state.copy_(new_h)
+            conv_state.copy_(new_conv)
+        x = x + 0.5 * (rms_norm(a_out, p["fuse_na"], cfg.norm_eps)
+                       + rms_norm(s_out, p["fuse_ns"], cfg.norm_eps))
+    else:
+        x = x + a_out
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + _ffn(cfg, p["mlp"], h)
-    return x, nc
+    if spec.moe:
+        f_out, aux = moe.moe_ffn(cfg, p["moe"], h)
+    else:
+        f_out, aux = _ffn(cfg, p["mlp"], h), None
+    return x + f_out, ce, aux
 
 
 def apply_model(cfg: ModelConfig, params, inputs, cache=None, pos=0, *,
                 logits_slice=None, logits_at=None, block_tables=None,
                 verify=False):
-    """inputs: int tokens (B,S). Returns (logits, cache).
+    """inputs: int tokens (B,S), or float embeddings (B,S,d) for the
+    configurations whose modality frontend is stubbed. Returns (logits,
+    cache).
 
     cache/pos implement chunked (partial) prefill and decode (the cache is
     updated in place and returned); cache=None is training/eval over the
@@ -152,9 +182,13 @@ def apply_model(cfg: ModelConfig, params, inputs, cache=None, pos=0, *,
     routes a paged chunk through the speculative verify kernel.
     ``logits_at`` (B,) computes the head only at one per-sequence chunk
     index (exact last-token logits under right-padded bucketed prefill),
-    returning (B,1,vocab)."""
-    _check_supported(cfg)
-    x = params["embed"][inputs.long()]
+    returning (B,1,vocab). The MoE layers' load-balance losses (the
+    reference's third return value) are not returned: serving has no use
+    for them."""
+    if inputs.is_floating_point():
+        x = inputs.to(params["embed"].dtype)
+    else:
+        x = params["embed"][inputs.long()]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     if isinstance(pos, torch.Tensor):
@@ -171,8 +205,8 @@ def apply_model(cfg: ModelConfig, params, inputs, cache=None, pos=0, *,
                 ce = None if cache_st is None else \
                     tree_map(lambda t: t[r], cache_st[ei])
                 pe = tree_map(lambda t: t[r], elems[ei])
-                x, _ = apply_layer(cfg, spec, pe, x, ce, pos,
-                                   block_tables, verify)
+                x, _, _ = apply_layer(cfg, spec, pe, x, ce, pos,
+                                      block_tables, verify)
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if logits_at is not None:

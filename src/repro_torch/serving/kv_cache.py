@@ -8,13 +8,20 @@ Cache layout mirrors the model's stage/pattern structure:
       'stages': [ [elem_cache, ...pattern elems], ...stages ],
     }
 
-where each attention ``elem_cache`` is ``{'k': (R,B,T,K,hd), 'v': ...}``
-with a leading ``repeat`` dim (stacked across the layers of the stage).
-Sliding-window layers hold a ring buffer of ``T = min(window + chunk,
-max_len)`` slots (rounded up to 256). K/V are stored in bfloat16. An
-RWKV-6 ``elem_cache`` is the per-sequence recurrent state
-``{'state': (R,B,H,hd,hd), 'sx_tm': (R,B,d), 'sx_cm': (R,B,d)}`` in
-float32, whatever ``max_len``.
+where each ``elem_cache`` is a dict of tensors with a leading ``repeat``
+dim (stacked across the layers of the stage):
+
+  - GQA attention:      {'k': (R,B,T,K,hd), 'v': (R,B,T,K,hd)}
+  - sliding window:     same, a ring buffer of T = min(window + chunk,
+                        max_len) slots (rounded up to 256)
+  - MLA:                {'ckv': (R,B,T,r), 'krope': (R,B,T,p)}
+  - hybrid (attn+ssm):  the attention part plus {'ssm_h': (R,B,dI,N),
+                        'ssm_conv': (R,B,cw-1,dI)}
+  - rwkv:               {'state': (R,B,H,hd,hd), 'sx_tm': (R,B,d),
+                        'sx_cm': (R,B,d)}
+
+Attention caches are stored in bfloat16, recurrent state in float32
+(its size does not depend on ``max_len``).
 
 Sequence length is a per-sequence position ``pos`` passed to the model
 (all layers advance in lockstep). Unlike the functional reference, the
@@ -57,17 +64,25 @@ def elem_cache_shape(cfg: ModelConfig, spec: LayerSpec, repeat: int,
                           torch.float32),
                 "sx_tm": ((repeat, batch, cfg.d_model), torch.float32),
                 "sx_cm": ((repeat, batch, cfg.d_model), torch.float32)}
-    if spec.kind != "attn" or cfg.attention_kind != "gqa":
-        raise NotImplementedError(
-            f"{cfg.name}: only GQA attention and RWKV-6 layers are ported "
-            f"(ROADMAP.md Queue 1, item 10)")
-    hd = cfg.resolved_head_dim
+    out = {}
     if spec.window is None:
         T = max_len
     else:
         T = min(-(-(spec.window + chunk) // 256) * 256, max_len)
-    shape = (repeat, batch, T, cfg.num_kv_heads, hd)
-    return {"k": (shape, KV_DTYPE), "v": (shape, KV_DTYPE)}
+    if cfg.attention_kind == "mla":
+        m = cfg.mla
+        out["ckv"] = ((repeat, batch, T, m.kv_lora_rank), KV_DTYPE)
+        out["krope"] = ((repeat, batch, T, m.qk_rope_head_dim), KV_DTYPE)
+    else:
+        shape = (repeat, batch, T, cfg.num_kv_heads, cfg.resolved_head_dim)
+        out["k"] = (shape, KV_DTYPE)
+        out["v"] = (shape, KV_DTYPE)
+    if spec.kind == "hybrid":
+        s, d_inner = cfg.ssm, cfg.d_model
+        out["ssm_h"] = ((repeat, batch, d_inner, s.state_dim), torch.float32)
+        out["ssm_conv"] = ((repeat, batch, s.conv_dim - 1, d_inner),
+                           torch.float32)
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -604,10 +619,12 @@ def _paged_elem_shape(cfg: ModelConfig, spec: LayerSpec, repeat: int,
         raise ValueError(
             f"paged KV cache does not support '{spec.kind}' layers "
             "(recurrent state is per-sequence, not per-token)")
-    if cfg.attention_kind != "gqa":
-        raise NotImplementedError(
-            f"{cfg.name}: the paged MLA pool is not ported yet "
-            f"(ROADMAP.md Queue 1, item 10)")
+    if cfg.attention_kind == "mla":
+        m = cfg.mla
+        return {"ckv": ((repeat, num_blocks, block_size, m.kv_lora_rank),
+                        KV_DTYPE),
+                "krope": ((repeat, num_blocks, block_size,
+                           m.qk_rope_head_dim), KV_DTYPE)}
     hd = cfg.resolved_head_dim
     shape = (repeat, num_blocks, block_size, cfg.num_kv_heads, hd)
     return {"k": (shape, KV_DTYPE), "v": (shape, KV_DTYPE)}

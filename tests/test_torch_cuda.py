@@ -916,3 +916,95 @@ def test_reclaim_replica_on_a_card_pool_with_live_sequences(cuda):
     assert report["released"] == 2 and report["radix_refs"] > 0
     assert eng.alloc.free_blocks() == eng.alloc.capacity
     assert eng.alloc.audit()["ok"] and eng.states == {}
+
+
+# ---------------------------------------------------------------------------
+# the other architectures: MoE dispatch, MLA paged, reduced engines
+
+def test_moe_dispatch_on_card_matches_all_experts(cuda):
+    """The selected-pairs dispatch against the reference's all-experts
+    formulation (``routed_dense_plain``) on the card, at Qwen1.5-MoE's
+    router (60 experts, top 4) and a narrow width, 64 tokens; the same
+    routing on both sides (one router call each on the same inputs).
+    Outputs at 1e-5 of their scale, the aux loss at 1e-5."""
+    import dataclasses
+    from repro_torch.models import moe
+    base = get_config("qwen2-moe-a2.7b")
+    cfg = dataclasses.replace(base, d_model=256, moe=dataclasses.replace(
+        base.moe, d_expert=128, d_shared=256))
+    p = moe.init_moe_params(torch.Generator(device=cuda).manual_seed(0),
+                            cfg, torch.float32, cuda, 1)
+    p = {k: (v[0] if torch.is_tensor(v) else
+             {kk: vv[0] for kk, vv in v.items()}) for k, v in p.items()}
+    x = torch.randn((64, 256), generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+    with torch.inference_mode():
+        got, aux = moe.routed(cfg, p, x)
+        want, aux_w = moe.routed_dense_plain(cfg, p, x)
+        full, _ = moe.moe_ffn(cfg, p, x[None])
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+    torch.testing.assert_close(aux, aux_w, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        full[0], want + moe.shared_expert_ffn(cfg, p, x), rtol=1e-5,
+        atol=1e-5 * float(full.abs().max()))
+
+
+def test_mla_paged_matches_dense_on_card(cuda):
+    """DeepSeek-V3's reduced MLA on the card: prefill 6 and a chunk of 2
+    through a shuffled paged pool against the dense cache on the card
+    (1e-5), and both against the CPU (5e-3: bf16 ckv/krope, as
+    test_model_on_card_matches_cpu)."""
+    cfg = get_config("deepseek-v3-671b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         torch.float32, "cpu")
+    toks = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 8))
+    bt = [[6, 3], [2, 7]]
+    outs = {}
+    for dev, p in (("cpu", params), ("cuda", tree_to(params, cuda))):
+        for paged in (False, True):
+            cache = kvc.init_paged_pool(cfg, 8, 4, device=dev) if paged \
+                else kvc.init_cache(cfg, 2, 16, device=dev)
+            kw = {"block_tables": torch.tensor(bt, dtype=torch.int32,
+                                               device=dev)} if paged else {}
+            got = []
+            with torch.inference_mode():
+                for lo, hi in ((0, 6), (6, 8)):
+                    x = torch.as_tensor(toks[:, lo:hi], device=dev)
+                    logits, cache = apply_model(cfg, p, x, cache, lo, **kw)
+                    got.append(logits.float().cpu())
+            outs[(dev, paged)] = got
+    for a, b in zip(outs[("cuda", True)], outs[("cuda", False)]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    for paged in (False, True):
+        for a, b in zip(outs[("cuda", paged)], outs[("cpu", paged)]):
+            torch.testing.assert_close(a, b, rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.parametrize("arch,paged", [("qwen2-moe-a2.7b", False),
+                                        ("qwen2-moe-a2.7b", True),
+                                        ("hymba-1.5b", False)],
+                         ids=["moe-dense", "moe-paged", "hybrid-dense"])
+def test_reduced_engine_on_card_decodes_cpu_tokens(cuda, arch, paged):
+    """The reduced MoE and hybrid engines on the card, holding the CPU
+    engine's weights: the same greedy text for two prompts, 8 tokens
+    each; the paged pool audits clean after release."""
+    from repro_torch.engines.llm_engine import LLMEngine
+    cfg = get_config(arch).reduced()
+    kw = dict(max_len=128, max_batch=4, paged=paged, block_size=8)
+    ref = LLMEngine("t", cfg, device="cpu", **kw)
+    eng = LLMEngine("t", cfg, device=cuda, **kw)
+    eng.params = tree_to(ref.params, cuda)
+    tasks = [{"sid": "a", "text": "what is fact 3 about optics"},
+             {"sid": "b", "text": "an unrelated prompt of some length"}]
+    out = []
+    for e in (ref, eng):
+        e.op_prefill([dict(t) for t in tasks])
+        out.append(e.op_decode([{"sid": "a", "max_new": 8},
+                                {"sid": "b", "max_new": 8}]))
+        for sid in ("a", "b"):
+            e.release(sid)
+    assert out[0] == out[1] and all(out[1])
+    if paged:
+        assert eng.alloc.audit()["ok"]
+        assert eng.alloc.free_blocks() == eng.alloc.capacity

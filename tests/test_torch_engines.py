@@ -153,19 +153,3 @@ def test_clone_shares_weights_not_state():
     port.op_prefill([{"sid": "a", "text": "alpha"}])
     assert "a" not in c.states and c.kv_occupancy() == 0
     assert port.kv_free_blocks() is None
-
-
-_UNPORTED = {
-    "paged_mla": lambda e: TLLMEngine("t", tget_config("deepseek-v3-671b"),
-                                      paged=True, device="cpu"),
-}
-
-
-@pytest.mark.parametrize("what", sorted(_UNPORTED))
-def test_unported_options_raise(what):
-    """MLA (ROADMAP item 10, paged or not) still refuses, naming the
-    ROADMAP item. The serving-layer hooks are held in
-    tests/test_torch_serving_layers.py."""
-    eng = TLLMEngine("t", tget_config("tiny-lite-llm"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _UNPORTED[what](eng)

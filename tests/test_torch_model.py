@@ -78,7 +78,7 @@ def test_rms_norm_matches():
 @pytest.mark.parametrize("shape,pos_shape", [((2, 7, 4, 64), (7,)),
                                              ((2, 7, 4, 64), (2, 7)),
                                              ((2, 7, 32), (2, 7))])
-@pytest.mark.parametrize("kind", ["neox", "none"])
+@pytest.mark.parametrize("kind", ["neox", "half", "none"])
 def test_apply_rope_matches(shape, pos_shape, kind):
     rs = np.random.RandomState(1)
     x = rs.standard_normal(shape).astype(np.float32)

@@ -294,16 +294,6 @@ def test_cache_shapes_and_bytes_match():
         assert tkvc.bytes_per_token(tc) == jkvc.bytes_per_token(c)
 
 
-@pytest.mark.parametrize("name", ["hymba-1.5b", "qwen2-moe-a2.7b",
-                                  "deepseek-v3-671b", "musicgen-medium"])
-def test_other_architectures_still_refuse(name):
-    """Hybrid, MoE, MLA and embedding inputs stay unported (ROADMAP.md
-    Queue 1, item 10)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tinit(tget_config(name).reduced(), torch.Generator(), torch.float32,
-              "cpu")
-
-
 # ---------------------------------------------------------------------------
 # engine
 
