@@ -59,20 +59,34 @@ Phases, in order; any failure exits non-zero:
  10. hybrid: the same with the full 32-layer Hymba-1.5B on the dense
      path; its Mamba branch timed at a decode step and a 512-token
      prefill.
- 11. apps: every app of core/apps.py under every scheme of serve.py's
+ 11. train: training on the card. (a) K6's backward kernel, through
+     rwkv6_scan's autograd Function, against autograd through the plain
+     recurrence at RWKV-6 3B's heads (batch 2, S 1 / 100 / 128 / 512,
+     fp32 and bf16), timed with the forward that saves the boundary
+     states; (b) one train step of TinyLlama-1.1B, RWKV-6 3B,
+     Qwen1.5-MoE-A2.7B and Hymba-1.5B at full width, 2 layers, card
+     against CPU on the loss, every gradient leaf, gnorm and the new
+     params (the CPU replaying the card's MoE top-k choices), and 3 steps
+     of every other architecture on the card (finite, params changed);
+     (c) the whole 22-layer TinyLlama-1.1B through the port's train
+     launcher (batch 8 x 512, 2 microbatches, 20 steps: ce falls), its
+     checkpoint read back bit for bit, one step profiled; (d) the whole
+     32-layer RWKV-6 3B the same way (batch 2 x 512, 5 steps: finite,
+     params changed, 32 K6 forward and 32 backward launches per step).
+ 12. apps: every app of core/apps.py under every scheme of serve.py's
      SCHEMES, the 22-layer TinyLlama-1.1B as the core LLM on the dense
      path: advanced-RAG, search-gen and contextual retrieval under Teola
      measured as in phase 5; each baseline a warm-up and one query per app
      (LlamaDistPC last); every answer non-empty, naive- and advanced-RAG's
      chunks naming the question's topic.
- 12. layers: the serving layers through the serve entry point's functions
+ 13. layers: the serving layers through the serve entry point's functions
      (build_parser, validate_args, make_engines, serve) with the same
      core: (a) two replicas with streaming, (b) SLO scheduling and a
      preemption replayed token-identically, (c) a crash of core-LLM
      replica 1 and its recovery, (d) disaggregated prefill/decode with KV
      migration, (e) overload control shedding part of a burst; every paged
      pool audits clean after release.
- 13. exit: ``python -m repro_torch.launch.serve`` in a process of its own
+ 14. exit: ``python -m repro_torch.launch.serve`` in a process of its own
      serves one query and exits with 0.
 
 After each serve window one more query runs under torch.profiler: the
@@ -807,6 +821,7 @@ _ANON_KERNELS = (("fp32kv::flash_prefill_fp32kv_kernel<", "flash_prefill"),
                  ("fp32kv::chunk_prefill_fp32kv_kernel<",
                   "chunk_prefill_attention"),
                  ("rwkv6_scan_kernel<", "rwkv6_scan"),
+                 ("rwkv6_scan_bwd_kernel<", "rwkv6_scan_bwd"),
                  ("rwkv6_decode_kernel<", "rwkv6_scan"))
 _TEMPLATE_KEYS = {
     "void teola::split_kv_": (("teola::DenseKeys", "decode_attention"),
@@ -1688,7 +1703,454 @@ def phase_hybrid(dev, card: str):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: every app under every scheme ([apps])
+# phase 11: training ([train])
+
+# K6 backward against autograd through the plain recurrence on the card,
+# each gradient's max |difference| over its largest magnitude: float32
+# inputs differ only in summation order (per step sums of hd terms, du over
+# every step); bf16 inputs get bf16 gradients on both sides, which may
+# round one bf16 step apart (2^-8 of a value)
+K6_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# a train step at full width, 2 layers, card against CPU: the loss
+# relative, each gradient leaf's max |difference| over its largest
+# magnitude, and gnorm relative (TF32 off: float32 products in another
+# order on each device); the new params: Adam's first step is lr * g /
+# (|g| + eps), about lr * sign(g), so an entry whose gradient is within the
+# gradient tolerance of 0 may take the other sign (2 lr apart); one ten
+# times above it (FIRM of its leaf's largest) is held at 5% of lr
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_GNORM_TOL = 1e-4, 1e-3, 1e-4
+TRAIN_FIRM = 10 * TRAIN_GRAD_TOL
+# the models held card against CPU ([train] b) and the others that take
+# TRAIN_STEPS steps on the card; B x S tokens each
+TRAIN_HELD = ("tinyllama-1.1b", "rwkv6-3b", "qwen2-moe-a2.7b", "hymba-1.5b")
+TRAIN_OTHERS = ("deepseek-v3-671b", "chatglm3-6b", "deepseek-67b",
+                "gemma2-9b", "musicgen-medium", "internvl2-26b")
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 100, 3
+# fp32 operations per state element and step of K6's backward: the state
+# recomputed (k*v and w*S + kv, 3), the sums of dr, dk, dw and dv (a
+# multiply-add each, 8) and the dS update (r*dy and w*dS + r dy, 3)
+K6_BWD_OPS = 14
+
+
+def _k6_bwd_work(r, nbnd=0):
+    """Bytes and flops of one K6 backward. The bytes the gradient needs:
+    r, k, v, w and dy in, dr, dk, dv, dw out, the final state's gradient in
+    and dstate0 out, u in and du out. With ``nbnd``, also the nbnd states
+    the saving forward wrote for the backward to read back: this design's
+    checkpoints, which the function itself does not need."""
+    B, S, H, hd = r.shape
+    state = B * H * hd * hd * 4
+    nbytes = (9 * r.numel() * r.element_size() + (2 + nbnd) * state
+              + 2 * H * hd * 4)
+    return nbytes, K6_BWD_OPS * hd * hd * B * S * H
+
+
+def _grad_err(got, want):
+    return max((g.float() - w.float()).abs().max().item()
+               / max(w.float().abs().max().item(), 1e-30)
+               for g, w in zip(got, want))
+
+
+def train_k6(dev, card) -> dict:
+    """[train] (a): K6's backward, through rwkv6_scan's autograd Function,
+    against autograd through rwkv6_scan_plain on the same leaves, at
+    RWKV-6 3B's heads, batch 2, S in (1, 100, 128, 512), fp32 and bf16,
+    with the final state's gradient; then timed at S = 512, fp32."""
+    from repro_torch.kernels.rwkv6_scan import (SAVE_EVERY, rwkv6_scan_bwd,
+                                                rwkv6_scan_save)
+    res = {"max_abs_err": 0.0}
+    for S in (1, 100, 128, 512):
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = _scan_case(2, S, 40, 64, dev, dtype)
+            gen = torch.Generator(device=dev).manual_seed(S)
+            dy = torch.randn(xs[0].shape, generator=gen, device=dev)
+            ds = torch.randn(xs[5].shape, generator=gen, device=dev)
+            grads = []
+            for fn in (rwkv6_scan, rwkv6_scan_plain):
+                leaves = [x.clone().requires_grad_() for x in xs]
+                y, st = fn(*leaves)
+                grads.append(torch.autograd.grad(
+                    (y * dy).sum() + (st * ds).sum(), leaves))
+            torch.cuda.synchronize()
+            err = _grad_err(*grads)
+            abs_err = max((g.float() - w.float()).abs().max().item()
+                          for g, w in zip(*grads))
+            tol = K6_BWD_TOL[dtype]
+            print(f"[train] K6 backward B=2 S={S} H=40 hd=64 "
+                  f"{str(dtype)[6:]}: max |dgrad| / max |grad| over dr, dk, "
+                  f"dv, dw, du, dstate0 {err:.3e} (tolerance {tol:g}), max "
+                  f"abs {abs_err:.3e} [{card}]")
+            if not (err <= tol):
+                raise AssertionError(f"K6 backward S={S} {dtype}: {err}")
+            if dtype == torch.float32:
+                res["max_abs_err"] = max(res["max_abs_err"], abs_err)
+    xs = _scan_case(2, 512, 40, 64, dev, torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dy = torch.randn(xs[0].shape, generator=gen, device=dev)
+    ds = torch.randn(xs[5].shape, generator=gen, device=dev)
+    _, _, bnd = rwkv6_scan_save(*xs)
+    fwd_ms = device_ms(lambda: rwkv6_scan_save(*xs))
+    bwd = lambda: rwkv6_scan_bwd(*xs[:5], bnd, dy, ds)  # noqa: E731
+    ms, dev_ms = cuda_ms(bwd), device_ms(bwd)
+
+    def plain():
+        leaves = [x.clone().requires_grad_() for x in xs]
+        y, st = rwkv6_scan_plain(*leaves)
+        torch.autograd.grad((y * dy).sum() + (st * ds).sum(), leaves)
+    plain_ms = cuda_ms(plain, iters=2, warmup=1)
+    bound, by = _bound(*_k6_bwd_work(xs[0]))
+    saves, saves_by = _bound(*_k6_bwd_work(xs[0], bnd.shape[0]))
+    print(f"[train] K6 at B=2 S=512 H=40 hd=64 fp32: forward saving "
+          f"{bnd.shape[0]} states (one per {SAVE_EVERY} steps) device "
+          f"{_fmt(fwd_ms)}; backward {ms:.4f} ms (device {_fmt(dev_ms)}), "
+          f"autograd through the plain recurrence {plain_ms:.2f} ms, bound "
+          f"{bound:.4f} ms ({by}, {K6_BWD_OPS}*hd^2 per step), "
+          f"{saves:.4f} ms ({saves_by}) with the saved states read back; no "
+          f"single PyTorch call computes it [{card}]")
+    res.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=by, with_saves_bound_ms=saves, library_ms=None,
+               library_device_ms=None, fwd_save_device_ms=fwd_ms)
+    return res
+
+
+def _train_batch(cfg, dev, seed=SEED):
+    """TRAIN_B x TRAIN_S inputs: tokens, or seeded embeddings and
+    targets for the stubbed frontends."""
+    rs = np.random.RandomState(seed)
+    if cfg.embed_stub:
+        return {"embeds": torch.from_numpy(rs.standard_normal(
+                    (TRAIN_B, TRAIN_S, cfg.d_model)).astype(np.float32)).to(
+                    dev),
+                "targets": torch.from_numpy(rs.randint(
+                    0, cfg.vocab_size, (TRAIN_B, TRAIN_S))).to(dev)}
+    return {"tokens": torch.from_numpy(rs.randint(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1))).to(dev)}
+
+
+def _loss_grads(cfg, params, batch):
+    """(loss, gradient leaves) of the launcher's loss (fp32 compute)."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import train_step as ts
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        if cfg.embed_stub:
+            loss, _ = ts.embed_stub_loss(cfg, params, batch["embeds"],
+                                         batch["targets"],
+                                         compute_dtype=torch.float32)
+        else:
+            loss, _ = ts.next_token_loss(cfg, params, batch["tokens"],
+                                         compute_dtype=torch.float32)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(leaves, grads)]
+
+
+def _one_step(cfg, params, batch):
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+    oc = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    step = make_train_step(cfg, oc, compute_dtype=torch.float32,
+                           stub=cfg.embed_stub is not None)
+    return step(params, init_opt_state(oc, params), batch)[2]
+
+
+def _leaf_names(tree, prefix=""):
+    """Paths of ``tree_leaves(tree)``, in its order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in _leaf_names(v, f"{prefix}.{k}" if prefix else k)]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def _leaf_errs(got, want):
+    """Each gradient leaf's max |difference| over its largest magnitude."""
+    return [(a.cpu() - b.cpu()).abs().max().item()
+            / max(b.abs().max().item(), 1e-30) for a, b in zip(got, want)]
+
+
+@contextlib.contextmanager
+def _plain_recurrence():
+    """While open, the model's RWKV time mix runs the plain recurrence
+    (under autograd: differentiated by autograd) on every device."""
+    from repro_torch.models import ssm
+    orig = ssm.rwkv6_scan
+    ssm.rwkv6_scan = lambda *a, out_state=None: rwkv6_scan_plain(*a)
+    try:
+        yield
+    finally:
+        ssm.rwkv6_scan = orig
+
+
+def train_held(dev, card):
+    """[train] (b): one train step of each TRAIN_HELD model at full width,
+    2 layers, card against CPU on the same seeded weights and inputs: the
+    loss and every gradient leaf (a pass of its own), then the step's loss,
+    gnorm and new params (see TRAIN_FIRM). The CPU replays the card's MoE
+    top-k choices, as [archs] does. For RWKV-6 the gradients are also taken
+    on the card through the plain recurrence, which parts K6's share of the
+    difference from the devices' matmuls'."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_bwd
+    from repro_torch.models.common import tree_leaves, tree_map
+    lr = 1e-3
+    for name in TRAIN_HELD:
+        cfg = two_layer(name)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        p_dev = init_params(cfg, gen, torch.float32, dev)
+        p_cpu = tree_map(lambda t: t.to("cpu", copy=True), p_dev)
+        b_dev = _train_batch(cfg, dev)
+        b_cpu = {k: v.cpu() for k, v in b_dev.items()}
+        n0 = (rwkv6_scan.launches, rwkv6_scan_bwd.launches)
+        with _routing() as cc:
+            l_dev, g_dev = _loss_grads(cfg, p_dev, b_dev)
+        torch.cuda.synchronize()
+        k6 = (rwkv6_scan.launches - n0[0], rwkv6_scan_bwd.launches - n0[1])
+        with _routing(cc) as wc:
+            l_cpu, g_cpu = _loss_grads(cfg, p_cpu, b_cpu)
+        errs = _leaf_errs(g_dev, g_cpu)
+        names = _leaf_names(p_dev)
+        worst = sorted(zip(errs, names), reverse=True)[:3]
+        g_err = max(errs)
+        l_err = abs(l_dev.item() - l_cpu.item()) / abs(l_cpu.item())
+        print(f"[train] {cfg.name}: gradient leaves furthest apart, card vs "
+              f"CPU: " + ", ".join(f"{n} {e:.3e}" for e, n in worst)
+              + f" [{card}]")
+        if k6[0]:
+            with _plain_recurrence():
+                g_pl = _loss_grads(cfg, p_dev, b_dev)[1]
+            print(f"[train] {cfg.name}: gradients on the card through the "
+                  f"plain recurrence: K6 against it max |d| / leaf max "
+                  f"{max(_leaf_errs(g_dev, g_pl)):.3e}, it against the CPU "
+                  f"{max(_leaf_errs(g_pl, g_cpu)):.3e} [{card}]")
+            del g_pl
+        del g_dev
+        with _routing() as cc2:
+            m_dev = _one_step(cfg, p_dev, b_dev)
+        with _routing(cc2):
+            m_cpu = _one_step(cfg, p_cpu, b_cpu)
+        s_err = {k: abs(float(m_dev[k]) - float(m_cpu[k]))
+                 / abs(float(m_cpu[k])) for k in ("loss", "gnorm")}
+        firm_err, loose_err = 0.0, 0.0
+        for i, (a, b) in enumerate(zip(tree_leaves(p_dev),
+                                       tree_leaves(p_cpu))):
+            d = (a.cpu() - b).abs()
+            g = g_cpu[i].abs()
+            firm = g >= TRAIN_FIRM * g.max()
+            if firm.any():
+                firm_err = max(firm_err, d[firm].max().item())
+            loose_err = max(loose_err, d.max().item())
+        # rows are the batch's flattened tokens
+        flips = _flips(cc, wc, [(0, TRAIN_B * TRAIN_S)], cfg.num_layers) \
+            if cfg.moe is not None else []
+        print(f"[train] {cfg.name} (d={cfg.d_model}, 2 layers, batch "
+              f"{TRAIN_B} x {TRAIN_S}) card vs CPU: loss rel {l_err:.3e} "
+              f"(tolerance {TRAIN_LOSS_TOL:g}), gradients max |d| / leaf max"
+              f" {g_err:.3e} (tolerance {TRAIN_GRAD_TOL:g}); the step's "
+              f"loss rel {s_err['loss']:.3e}, gnorm rel {s_err['gnorm']:.3e}"
+              f" (tolerance {TRAIN_GNORM_TOL:g}); new params max |d| "
+              f"{loose_err:.3e} (2 lr = {2 * lr:g}), where |g| >= "
+              f"{TRAIN_FIRM:g} of the leaf's max {firm_err:.3e} (5% of lr);"
+              f" K6 launches forward {k6[0]}, backward {k6[1]}; MoE top-k "
+              f"flips replayed {len(flips)} [{card}]")
+        bad = [f for f in flips if f[4] >= FLIP_GAP]
+        if not (l_err <= TRAIN_LOSS_TOL and g_err <= TRAIN_GRAD_TOL
+                and s_err["loss"] <= TRAIN_LOSS_TOL
+                and s_err["gnorm"] <= TRAIN_GNORM_TOL
+                and loose_err <= 2 * lr + 1e-5
+                and firm_err <= 0.05 * lr) or bad:
+            raise AssertionError(f"train {name}: {l_err}, {g_err}, {s_err},"
+                                 f" {firm_err}, {loose_err}, flips {bad}")
+        if cfg.ssm is not None and cfg.stages[0].pattern[0].kind == "rwkv" \
+                and k6 != (2, 2):
+            raise AssertionError(f"train {name}: K6 launches {k6}, expected "
+                                 f"2 forward and 2 backward")
+        del p_dev, p_cpu, g_cpu
+        _free()
+
+
+def train_others(dev, card):
+    """[train] (b), the rest: TRAIN_STEPS steps of each TRAIN_OTHERS model
+    at full width, 2 layers, on the card: finite loss and gnorm, and the
+    params changed."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+    for name in TRAIN_OTHERS:
+        cfg = two_layer(name)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = init_params(cfg, gen, torch.float32, dev)
+        first = tree_leaves(params)[0].clone()
+        oc = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS)
+        opt = init_opt_state(oc, params)
+        step = make_train_step(cfg, oc, compute_dtype=torch.float32,
+                               stub=cfg.embed_stub is not None)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        ms = [step(params, opt, _train_batch(cfg, dev, SEED + i))[2]
+              for i in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        vals = [(float(m["loss"]), float(m["gnorm"])) for m in ms]
+        moved = not torch.equal(first, tree_leaves(params)[0])
+        n = sum(p.numel() for p in tree_leaves(params))
+        print(f"[train] {cfg.name} (d={cfg.d_model}, {n / 1e9:.2f} B params,"
+              f" 2 layers): {TRAIN_STEPS} steps in {wall:.2f} s, (loss, "
+              f"gnorm) " + ", ".join(f"({a:.4f}, {b:.3f})" for a, b in vals)
+              + f", params changed {moved}, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        if not moved or not all(np.isfinite(v).all() for v in vals):
+            raise AssertionError(f"train {name}: {vals}, moved {moved}")
+        del params, opt, first
+        _free()
+
+
+def _profiled_step(args, cfg, params, card, tag):
+    """One more step of the launcher's under torch.profiler: wall, the
+    card's busy share and each hand-written kernel's device us per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_bwd
+    from repro_torch.launch import train as train_cli
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.models.common import tree_leaves
+    step, oc = train_cli.make_step(args, cfg)
+    opt = init_opt_state(oc, params)
+    data = SyntheticLM(cfg.vocab_size, batch=args.batch, seq_len=args.seq)
+    try:
+        batch = train_cli.make_batch(cfg, next(data)["tokens"],
+                                     tree_leaves(params)[0].device)
+    finally:
+        data.close()
+    step(params, opt, batch)              # the optimizer state's first step
+    torch.cuda.synchronize()
+    n0 = (rwkv6_scan.launches, rwkv6_scan_bwd.launches)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    k6 = (rwkv6_scan.launches - n0[0], rwkv6_scan_bwd.launches - n0[1])
+    recs = _device_records(prof)
+    busy = sum(us for _, _, us in recs) / 1e6
+    per = {}
+    for name, _, us in recs:
+        owner = kernel_owner(name)
+        if owner is not None:
+            t, n = per.get(owner, (0.0, 0))
+            per[owner] = (t + us, n + 1)
+    print(f"[train] {tag}: one step under the profiler: wall {wall:.3f} s, "
+          f"device busy {busy:.3f} s ({100 * busy / wall:.1f}%), "
+          f"{len(recs)} device records; " + "; ".join(
+              f"{o} {t / n:.2f} us per call over {n}"
+              for o, (t, n) in sorted(per.items())) + f" [{card}]")
+    return k6, per
+
+
+def train_whole(dev, card, arch, argv):
+    """[train] (c) and (d): the whole model through the port's launcher
+    (``train`` on full-width weights drawn on the card). Returns (args,
+    cfg, params, history, K6 launches (forward, backward) over the run,
+    whether every leaf under 16M elements changed)."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_bwd
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.common import tree_leaves
+    _assert_empty_card("train")
+    args = train_cli.build_parser().parse_args(argv)
+    cfg = train_cli.make_config(args)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(cfg, gen, torch.float32, dev)
+    before = [t.clone() for t in tree_leaves(params) if t.numel() < 2**24]
+    torch.cuda.reset_peak_memory_stats()
+    rwkv6_scan.launches = rwkv6_scan_bwd.launches = 0
+    hist = train_cli.train(args, cfg, params,
+                           log=lambda s: print(s + f" [{card}]"))
+    torch.cuda.synchronize()
+    k6 = (rwkv6_scan.launches, rwkv6_scan_bwd.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    secs = sorted(h["seconds"] for h in hist[1:])
+    med = secs[len(secs) // 2]
+    toks = args.batch * args.seq
+    print(f"[train] {cfg.name} whole ({cfg.num_layers} layers, batch "
+          f"{args.batch} x {args.seq}, {args.microbatches} microbatch(es), "
+          f"fp32): {len(hist)} steps, median step {1e3 * med:.1f} ms (first "
+          f"{1e3 * hist[0]['seconds']:.1f} ms), {toks / med:.0f} tokens/s, "
+          f"peak {peak:.2f} GiB; ce {hist[0]['ce']:.4f} -> "
+          f"{hist[-1]['ce']:.4f}; gnorm {hist[0]['gnorm']:.3f} -> "
+          f"{hist[-1]['gnorm']:.3f}; K6 launches forward {k6[0]}, backward "
+          f"{k6[1]} [{card}]")
+    after = [t for t in tree_leaves(params) if t.numel() < 2**24]
+    moved = sum(not torch.equal(a, b) for a, b in zip(before, after))
+    print(f"[train] {cfg.name}: {moved} of {len(after)} leaves under 16M "
+          f"elements changed [{card}]")
+    if not all(np.isfinite([h["ce"], h["gnorm"]]).all() for h in hist):
+        raise AssertionError(f"train {arch}: non-finite {hist}")
+    return args, cfg, params, hist, k6, moved == len(after)
+
+
+def phase_train(dev, card: str) -> tuple:
+    """[train]: K6's backward, the four models held card vs CPU, every
+    other architecture's steps, then the whole TinyLlama-1.1B and the
+    whole RWKV-6 3B through the launcher. Returns (K6 backward's numbers,
+    its launches in the whole RWKV-6 run)."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training.checkpoint import load_checkpoint
+    _assert_empty_card("train")
+    res = train_k6(dev, card)
+    train_held(dev, card)
+    train_others(dev, card)
+    # (c) the whole TinyLlama-1.1B, its checkpoint written and read back
+    ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    args, cfg, params, hist, _, _ = train_whole(
+        dev, card, TINYLLAMA,
+        ["--arch", TINYLLAMA, "--steps", "20", "--batch", "8", "--seq",
+         "512", "--microbatches", "2", "--ckpt", ckpt])
+    t0 = time.time()
+    back = load_checkpoint(ckpt, params)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                                 tree_leaves(back)))
+    size = sum(os.path.getsize(os.path.join(ckpt, f))
+               for f in os.listdir(ckpt)) / 2**30
+    print(f"[train] checkpoint {size:.2f} GiB read back in "
+          f"{time.time() - t0:.1f} s: equal bit for bit {same} [{card}]")
+    shutil.rmtree(ckpt)
+    del back
+    if not (hist[-1]["ce"] < hist[0]["ce"]) or not same:
+        raise AssertionError(f"train {TINYLLAMA}: ce {hist[0]['ce']} -> "
+                             f"{hist[-1]['ce']}, checkpoint equal {same}")
+    _profiled_step(args, cfg, params, card, TINYLLAMA)
+    del params
+    _free()
+    # (d) the whole RWKV-6 3B
+    layers = get_config(RWKV).num_layers
+    args, cfg, params, hist, k6, moved = train_whole(
+        dev, card, RWKV, ["--arch", RWKV, "--steps", "5", "--batch", "2",
+                          "--seq", "512", "--microbatches", "1"])
+    k6_step, per = _profiled_step(args, cfg, params, card, RWKV)
+    del params
+    _free()
+    steps = len(hist)
+    if k6 != (layers * steps, layers * steps) or \
+            k6_step != (layers, layers) or not moved or \
+            not {"rwkv6_scan", "rwkv6_scan_bwd"} <= per.keys():
+        raise AssertionError(f"train {RWKV}: K6 launches {k6} over {steps} "
+                             f"steps, {k6_step} in the profiled step, "
+                             f"params changed {moved}, device rows {per}")
+    return res, k6[1]
+
+
+# ---------------------------------------------------------------------------
+# phase 12: every app under every scheme ([apps])
 
 TINYLLAMA = "tinyllama-1.1b"
 ALL_SCHEMES = list(serve_cli.SCHEMES)
@@ -1839,7 +2301,7 @@ def _decoded(engines) -> int:
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the serving layers through the serve entry point ([layers])
+# phase 13: the serving layers through the serve entry point ([layers])
 
 def _audit_pools(tag: str, engines) -> list:
     """Every paged replica after release: a clean audit, 0 leaked blocks,
@@ -2122,6 +2584,8 @@ def main() -> int:
     timed("archs", phase_archs, dev, card)
     timed("moe", phase_moe, dev, card)
     timed("hybrid", phase_hybrid, dev, card)
+    kres["rwkv6_scan_bwd"], k6_bwd = timed("train", phase_train, dev, card)
+    launches["rwkv6_scan_bwd"] = k6_bwd
     timed("apps", phase_apps, dev, card)
     timed("layers", phase_layers, dev, card)
     timed("exit", phase_exit, card)
@@ -2139,7 +2603,11 @@ def main() -> int:
                    "src/repro_torch/csrc/chunk_prefill.cu",
                    "src/repro/kernels/chunk_prefill.py:102"),
                "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
-                              "src/repro/kernels/rwkv6_scan.py:52")}
+                              "src/repro/kernels/rwkv6_scan.py:52"),
+               # K6's gradient: no Pallas counterpart (the reference
+               # differentiates a lax.scan); the kernel it differentiates
+               "rwkv6_scan_bwd": ("src/repro_torch/csrc/rwkv6_scan_bwd.cu",
+                                  "src/repro/kernels/rwkv6_scan.py:52")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = kres[name]
@@ -2151,7 +2619,8 @@ def main() -> int:
                         "library_ms": r["library_ms"],
                         "device_ms": r["device_ms"],
                         "library_device_ms": r["library_device_ms"]})
-        for extra in ("tc_bound_ms", "needed_bound_ms", "cold_device_ms"):
+        for extra in ("tc_bound_ms", "needed_bound_ms", "cold_device_ms",
+                      "fwd_save_device_ms", "with_saves_bound_ms"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))

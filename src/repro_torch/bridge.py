@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import leaf_dtype, tree_map
+from repro_torch.models.common import leaf_dtype, tree_leaves, tree_map
 from repro_torch.models.encoder import EncoderConfig
 
 
@@ -37,17 +37,6 @@ def tree_to(tree, device):
     return tree_map(lambda t: t.to(device), tree)
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def decoder_params(tree, cfg: ModelConfig, device="cuda", dtype=None):
     """Params of ``repro.models.transformer.init_params(cfg, ...)`` (numpy
     leaves) -> the port's decoder params."""
@@ -61,7 +50,7 @@ def decoder_params(tree, cfg: ModelConfig, device="cuda", dtype=None):
         if len(elems) != len(st.pattern):
             raise ValueError(f"stage pattern of {len(elems)} elements, "
                              f"expected {len(st.pattern)}")
-        for leaf in _leaves(elems):
+        for leaf in tree_leaves(elems):
             if np.shape(leaf)[0] != st.repeat:
                 raise ValueError(f"stage leaf {np.shape(leaf)} lacks the "
                                  f"leading repeat axis {st.repeat}")

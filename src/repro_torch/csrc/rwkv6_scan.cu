@@ -61,6 +61,11 @@
 //    (640 CTAs of 128 threads at batch 4, 160 at batch 1). The chunked
 //    kernel at TC = 1 spent six barriers and two trips of the state
 //    through shared memory on that one step.
+//  - For training, the caller may pass `boundaries` (nchunks, B, H, hd,
+//    hd): the chunked kernel then stores the state at the start of every
+//    chunk of TC = 16 steps (chunk 0's is state0), from its registers,
+//    whatever S_len (S_len = 1 included). The backward kernel
+//    (rwkv6_scan_bwd.cu) recomputes each chunk's states from them.
 #include "common.cuh"
 
 namespace {
@@ -182,7 +187,8 @@ __global__ void __launch_bounds__(threads<HD, CW_SCAN, R_SCAN>(), MIN_CTAS)
 rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ w,
                   const float* __restrict__ u, const float* state0,
-                  float* __restrict__ y, float* state_out, int S, int H) {
+                  float* __restrict__ y, float* state_out,
+                  float* __restrict__ boundaries, int S, int H) {
   constexpr int R = R_SCAN, JS = HD / R, CW = CW_SCAN;
   constexpr int NT = threads<HD, CW, R>();
   static_assert(R % 4 == 0 && HD % R == 0 && NT % 32 == 0, "CTA shape");
@@ -226,6 +232,13 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
     if (n > 0) {
       teola::cp_async_wait<1>();  // chunk n
       __syncthreads();
+    }
+    if (boundaries != nullptr) {  // the state before step t0 (training)
+      float* bp = boundaries + (size_t)n * gridDim.z * H * HD * HD + sbase;
+#pragma unroll
+      for (int m = 0; m < R; ++m)
+        *reinterpret_cast<float2*>(bp + (size_t)(g * R + m) * HD + c) =
+            make_float2(s[m][0], s[m][1]);
     }
     // the bonus term of each step: JP neighbouring lanes per step, 8 rows
     // each (every thread takes each pass, so the shuffles see full warps)
@@ -341,12 +354,12 @@ rwkv6_decode_kernel(const T* __restrict__ r, const T* __restrict__ k,
 template <int HD, typename T>
 int launch(const void* r, const void* k, const void* v, const void* w,
            const float* u, const float* state0, float* y, float* state_out,
-           int B, int S, int H, cudaStream_t stream) {
+           float* boundaries, int B, int S, int H, cudaStream_t stream) {
   const T* rt = static_cast<const T*>(r);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* wt = static_cast<const T*>(w);
-  if (S == 1) {
+  if (S == 1 && boundaries == nullptr) {
     rwkv6_decode_kernel<HD, T>
         <<<dim3(HD / CW_DECODE, H, B), threads<HD, CW_DECODE, R_DECODE>(), 0,
            stream>>>(rt, kt, vt, wt, u, state0, y, state_out, H);
@@ -357,8 +370,8 @@ int launch(const void* r, const void* k, const void* v, const void* w,
   static_assert(sizeof(Sm) <= 48 * 1024, "shared memory");
   rwkv6_scan_kernel<HD, T, TC_PREFILL>
       <<<dim3(HD / CW_SCAN, H, B), threads<HD, CW_SCAN, R_SCAN>(),
-         sizeof(Sm), stream>>>(rt, kt, vt, wt, u, state0, y, state_out, S,
-                               H);
+         sizeof(Sm), stream>>>(rt, kt, vt, wt, u, state0, y, state_out,
+                               boundaries, S, H);
   return (int)cudaGetLastError();
 }
 
@@ -367,32 +380,35 @@ int launch(const void* r, const void* k, const void* v, const void* w,
 // r, k, v, w (B,S,H,hd) in one dtype (TEOLA_F32 | TEOLA_BF16); u (H,hd),
 // state0 and state_out (B,H,hd,hd), y (B,S,H,hd), all float32 and
 // contiguous; every pointer but u 16-byte aligned. state_out may alias
-// state0. hd in {32, 64}; S >= 1.
+// state0. boundaries: null, or float32 (ceil(S / 16), B, H, hd, hd),
+// 16-byte aligned, not aliasing the others. hd in {32, 64}; S >= 1.
 extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v,
                                  const void* w, const float* u,
                                  const float* state0, float* y,
-                                 float* state_out, int B, int S, int H,
-                                 int hd, int dtype, void* stream) {
+                                 float* state_out, float* boundaries, int B,
+                                 int S, int H, int hd, int dtype,
+                                 void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const size_t ptrs = reinterpret_cast<size_t>(r) |
                       reinterpret_cast<size_t>(k) |
                       reinterpret_cast<size_t>(v) |
                       reinterpret_cast<size_t>(w) |
                       reinterpret_cast<size_t>(state0) |
-                      reinterpret_cast<size_t>(state_out);
+                      reinterpret_cast<size_t>(state_out) |
+                      reinterpret_cast<size_t>(boundaries);
   if (ptrs & 15) return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 32 && dtype == TEOLA_F32)
-    return launch<32, float>(r, k, v, w, u, state0, y, state_out, B, S, H,
-                             st);
+    return launch<32, float>(r, k, v, w, u, state0, y, state_out, boundaries,
+                             B, S, H, st);
   if (hd == 32 && dtype == TEOLA_BF16)
-    return launch<32, __nv_bfloat16>(r, k, v, w, u, state0, y, state_out, B,
-                                     S, H, st);
+    return launch<32, __nv_bfloat16>(r, k, v, w, u, state0, y, state_out,
+                                     boundaries, B, S, H, st);
   if (hd == 64 && dtype == TEOLA_F32)
-    return launch<64, float>(r, k, v, w, u, state0, y, state_out, B, S, H,
-                             st);
+    return launch<64, float>(r, k, v, w, u, state0, y, state_out, boundaries,
+                             B, S, H, st);
   if (hd == 64 && dtype == TEOLA_BF16)
-    return launch<64, __nv_bfloat16>(r, k, v, w, u, state0, y, state_out, B,
-                                     S, H, st);
+    return launch<64, __nv_bfloat16>(r, k, v, w, u, state0, y, state_out,
+                                     boundaries, B, S, H, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -17,6 +17,18 @@ rwkv6_scan_ref`` in plain PyTorch, one timestep at a time in float32 —
 for CPU tensors. There is no fallback between the two: a CUDA call that
 cannot launch raises. ``rwkv6_scan.launches`` counts kernel launches.
 
+Training: when grad is enabled and an input requires it, ``rwkv6_scan``
+goes through ``RWKV6Scan``, a ``torch.autograd.Function``. Its forward
+launches K6 in a mode that also stores the state at the start of every
+chunk of ``SAVE_EVERY`` steps; its backward is ``rwkv6_scan_bwd``: a
+second hand-written kernel, ``repro_torch/csrc/rwkv6_scan_bwd.cu``, on
+CUDA tensors (``rwkv6_scan_bwd.launches`` counts it), and
+``rwkv6_scan_bwd_plain`` — the gradient formulas one step at a time — on
+CPU tensors. The reference has no backward kernel: it differentiates a
+checkpointed ``lax.scan`` (``repro/models/ssm.py``), which checkpoints
+every 128 steps; the port saves every 16 (the forward kernel's chunk),
+``B*H*hd^2*4`` bytes each (1.31 MB at RWKV-6 3B's heads, batch 2).
+
 ``rwkv6_scan_split_plain`` mirrors the kernel's order of summation in
 plain PyTorch (the row-group partials, the hoisted bonus term). Only the
 tests use it.
@@ -31,28 +43,92 @@ import torch
 from repro_torch.kernels import build
 
 HEAD_DIMS = (32, 64)
+# steps between the states the training forward saves: the forward
+# kernel's chunk (TC_PREFILL in csrc/rwkv6_scan.cu, TC in rwkv6_scan_bwd.cu)
+SAVE_EVERY = 16
 
 _count_lock = threading.Lock()
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# r, k, v, w, u, state0, y, state_out, B, S, H, hd, dtype, stream
-_ARGTYPES = [_P] * 8 + [_I] * 5 + [_P]
+# r, k, v, w, u, state0, y, state_out, boundaries, B, S, H, hd, dtype, stream
+_ARGTYPES = [_P] * 9 + [_I] * 5 + [_P]
+# r, k, v, w, u, boundaries, dy, dstate, dr, dk, dv, dw, du, dstate0,
+# B, S, H, hd, dtype, stream
+_BWD_ARGTYPES = [_P] * 14 + [_I] * 5 + [_P]
 
 
-def rwkv6_scan_plain(r, k, v, w, u, state0):
+def _acc_dtype(t):
+    """float64 for float64 inputs (gradcheck), float32 otherwise."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def rwkv6_scan_plain(r, k, v, w, u, state0, boundaries=None):
     """r,k,v,w (B,S,H,hd); u (H,hd); state0 (B,H,hd,hd). Sequential
-    recurrence in float32:
+    recurrence in float32 (float64 for float64 inputs):
       y_t = r_t . (S_{t-1} + diag(u) k_t v_t^T);  S_t = diag(w_t) S + k v^T
-    Returns (y (B,S,H,hd) float32, final state (B,H,hd,hd) float32)."""
-    rf, kf, vf, wf = [a.float() for a in (r, k, v, w)]
-    uf = u.float()
-    st = state0.float()
+    Returns (y (B,S,H,hd), final state (B,H,hd,hd)). Given a list as
+    ``boundaries``, appends to it the state before every step t with t %
+    SAVE_EVERY == 0, as the training forward kernel stores them."""
+    dt = _acc_dtype(r)
+    rf, kf, vf, wf = [a.to(dt) for a in (r, k, v, w)]
+    uf = u.to(dt)
+    st = state0.to(dt)
     ys = []
     for t in range(r.shape[1]):
+        if boundaries is not None and t % SAVE_EVERY == 0:
+            boundaries.append(st)
         kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]      # (B,H,hd,hd)
         ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, t],
                                st + uf[..., None] * kv))
         st = wf[:, t, :, :, None] * st + kv
     return torch.stack(ys, dim=1), st
+
+
+def rwkv6_scan_bwd_plain(r, k, v, w, u, boundaries, dy, dstate=None):
+    """The gradients of ``rwkv6_scan_plain`` one step at a time, in
+    float32 (float64 for float64 inputs): the backward kernel's oracle and
+    the CPU path. ``boundaries`` (ceil(S / SAVE_EVERY), B,H,hd,hd) are the
+    states before steps 0, SAVE_EVERY, ...; each chunk's states are
+    recomputed forward from its boundary. ``dy`` (B,S,H,hd) and
+    ``dstate`` (B,H,hd,hd) or None (zero) are the gradients of y and of the
+    final state. Walking t down with dS = dstate:
+      dr_t = (S_{t-1} + diag(u) k_t v_t^T) dy_t
+      dk_t = r_t * u * (v_t . dy_t) + dS v_t
+      dv_t = (r_t * u . k_t) dy_t + dS^T k_t
+      dw_t = rowsum(dS * S_{t-1})
+      du  += r_t * k_t * (v_t . dy_t)
+      dS  <- diag(w_t) dS + r_t dy_t^T
+    Returns (dr, dk, dv, dw (B,S,H,hd), du (H,hd), dstate0 (B,H,hd,hd))."""
+    dt = _acc_dtype(r)
+    rf, kf, vf, wf, dyf = [a.to(dt) for a in (r, k, v, w, dy)]
+    uf = u.to(dt)
+    B, S, H, hd = r.shape
+    ds = torch.zeros((B, H, hd, hd), dtype=dt, device=r.device) \
+        if dstate is None else dstate.to(dt)
+    dr, dk, dv, dw = [torch.empty((B, S, H, hd), dtype=dt, device=r.device)
+                      for _ in range(4)]
+    du = torch.zeros((H, hd), dtype=dt, device=r.device)
+    vdy = (vf * dyf).sum(-1, keepdim=True)                  # (B,S,H,1)
+    bonus = (rf * uf * kf).sum(-1, keepdim=True)            # (B,S,H,1)
+    for n in reversed(range(boundaries.shape[0])):
+        t0, t1 = n * SAVE_EVERY, min(S, (n + 1) * SAVE_EVERY)
+        st, prev = boundaries[n].to(dt), []
+        for t in range(t0, t1):
+            prev.append(st)
+            st = wf[:, t, :, :, None] * st + \
+                kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        for t in reversed(range(t0, t1)):
+            sp, dyt = prev[t - t0], dyf[:, t]
+            dr[:, t] = torch.einsum("bhkv,bhv->bhk", sp, dyt) + \
+                uf * kf[:, t] * vdy[:, t]
+            dk[:, t] = rf[:, t] * uf * vdy[:, t] + \
+                torch.einsum("bhkv,bhv->bhk", ds, vf[:, t])
+            dv[:, t] = bonus[:, t] * dyt + \
+                torch.einsum("bhkv,bhk->bhv", ds, kf[:, t])
+            dw[:, t] = (ds * sp).sum(-1)
+            du += (rf[:, t] * kf[:, t] * vdy[:, t]).sum(0)
+            ds = wf[:, t, :, :, None] * ds + \
+                rf[:, t, :, :, None] * dyt[:, :, None, :]
+    return dr, dk, dv, dw, du, ds
 
 
 def rwkv6_scan_split_plain(r, k, v, w, u, state0, rows=None):
@@ -110,16 +186,9 @@ def _check(r, k, v, w, u, state0, out_state):
                          "aligned")
 
 
-def rwkv6_scan(r, k, v, w, u, state0, out_state=None):
-    """r,k,v,w (B,S,H,hd) float32|bfloat16; u (H,hd) and state0
-    (B,H,hd,hd) float32. Returns (y (B,S,H,hd) float32, final state). The
-    final state is written into ``out_state`` when given, which may be
-    ``state0`` itself (an in-place cache update)."""
-    if r.device.type == "cpu":
-        y, st = rwkv6_scan_plain(r, k, v, w, u, state0)
-        if out_state is not None:
-            st = out_state.copy_(st)
-        return y, st
+def _launch(r, k, v, w, u, state0, out_state=None, save=False):
+    """K6 on CUDA tensors. With ``save`` also returns the boundary states
+    (ceil(S / SAVE_EVERY), B,H,hd,hd) the kernel stored."""
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: unsupported device {r.device}")
     _check(r, k, v, w, u, state0, out_state)
@@ -127,15 +196,119 @@ def rwkv6_scan(r, k, v, w, u, state0, out_state=None):
     y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     if out_state is None:
         out_state = torch.empty_like(state0)
+    bnd = torch.empty((-(-S // SAVE_EVERY), B, H, hd, hd),
+                      dtype=torch.float32, device=r.device) if save else None
     launch = build.load("rwkv6_scan", "rwkv6_scan_launch", _ARGTYPES)
     err = launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        state0.data_ptr(), y.data_ptr(), out_state.data_ptr(), B, S, H, hd,
+        state0.data_ptr(), y.data_ptr(), out_state.data_ptr(),
+        None if bnd is None else bnd.data_ptr(), B, S, H, hd,
         build.dtype_code(r), torch.cuda.current_stream(r.device).cuda_stream)
     build.check("rwkv6_scan", err, "rwkv6_scan")
     with _count_lock:       # engines launch from several threads
         rwkv6_scan.launches += 1
-    return y, out_state
+    return (y, out_state, bnd) if save else (y, out_state)
+
+
+def rwkv6_scan_save(r, k, v, w, u, state0):
+    """The training forward: (y, final state, boundaries), the boundaries
+    (ceil(S / SAVE_EVERY), B,H,hd,hd) being the states before steps 0,
+    SAVE_EVERY, ...: K6 storing them on CUDA tensors (one launch, counted
+    by ``rwkv6_scan.launches``), the plain recurrence on CPU tensors."""
+    if r.device.type == "cpu":
+        bnd = []
+        y, st = rwkv6_scan_plain(r, k, v, w, u, state0, bnd)
+        return y, st, torch.stack(bnd)
+    return _launch(r, k, v, w, u, state0, save=True)
+
+
+def rwkv6_scan_bwd(r, k, v, w, u, boundaries, dy, dstate=None):
+    """The gradients of K6 (see ``rwkv6_scan_bwd_plain`` for the
+    arguments and results): the backward kernel on CUDA tensors, which
+    returns them in float32; the plain version on CPU tensors."""
+    if r.device.type == "cpu":
+        return rwkv6_scan_bwd_plain(r, k, v, w, u, boundaries, dy, dstate)
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_scan_bwd: unsupported device {r.device}")
+    _check(r, k, v, w, u, boundaries[0], None)
+    B, S, H, hd = r.shape
+    ts = [boundaries, dy] + ([dstate] if dstate is not None else [])
+    if boundaries.shape != (-(-S // SAVE_EVERY), B, H, hd, hd) or \
+            dy.shape != r.shape or \
+            (dstate is not None and dstate.shape != (B, H, hd, hd)) or \
+            any(t.dtype != torch.float32 or t.device != r.device or
+                not t.is_contiguous() for t in ts) or dy.data_ptr() % 16:
+        raise ValueError("rwkv6_scan_bwd: boundaries, dy and dstate must "
+                         "be contiguous float32 of K6's shapes on r's "
+                         "device, dy 16-byte aligned")
+    dr, dk, dv, dw = [torch.empty(r.shape, dtype=torch.float32,
+                                  device=r.device) for _ in range(4)]
+    du = torch.empty((B, H, hd), dtype=torch.float32, device=r.device)
+    ds0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    launch = build.load("rwkv6_scan_bwd", "rwkv6_scan_bwd_launch",
+                        _BWD_ARGTYPES)
+    err = launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        boundaries.data_ptr(), dy.data_ptr(),
+        None if dstate is None else dstate.data_ptr(), dr.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+        ds0.data_ptr(), B, S, H, hd, build.dtype_code(r),
+        torch.cuda.current_stream(r.device).cuda_stream)
+    build.check("rwkv6_scan_bwd", err, "rwkv6_scan_bwd")
+    with _count_lock:
+        rwkv6_scan_bwd.launches += 1
+    return dr, dk, dv, dw, du.sum(0), ds0
+
+
+rwkv6_scan_bwd.launches = 0
+
+
+class RWKV6Scan(torch.autograd.Function):
+    """K6 under autograd: the forward saves the boundary states, the
+    backward recomputes each chunk's states from them (``rwkv6_scan_bwd``).
+    Gradients come back in each input's dtype."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state0):
+        y, st, bnd = rwkv6_scan_save(r, k, v, w, u, state0)
+        ctx.save_for_backward(r, k, v, w, u, bnd)
+        ctx.state_dtype = state0.dtype
+        ctx.set_materialize_grads(False)
+        return y, st
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        r, k, v, w, u, bnd = ctx.saved_tensors
+        dy = torch.zeros(r.shape, dtype=bnd.dtype, device=r.device) \
+            if dy is None else dy.contiguous()
+        if dstate is not None:
+            dstate = dstate.contiguous()
+        dr, dk, dv, dw, du, ds0 = rwkv6_scan_bwd(r, k, v, w, u, bnd, dy,
+                                                 dstate)
+        return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                dw.to(w.dtype), du.to(u.dtype), ds0.to(ctx.state_dtype))
+
+
+def rwkv6_scan(r, k, v, w, u, state0, out_state=None):
+    """r,k,v,w (B,S,H,hd) float32|bfloat16; u (H,hd) and state0
+    (B,H,hd,hd) float32. Returns (y (B,S,H,hd) float32, final state). The
+    final state is written into ``out_state`` when given, which may be
+    ``state0`` itself (an in-place cache update). When grad is enabled and
+    an input requires it, the call goes through ``RWKV6Scan``, which
+    writes no ``out_state``: serving never takes gradients."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u, state0)):
+        if out_state is not None:
+            raise ValueError("rwkv6_scan: out_state is a serving cache "
+                             "update; under autograd the final state is "
+                             "returned instead")
+        return RWKV6Scan.apply(r, k, v, w, u, state0)
+    if r.device.type == "cpu":
+        y, st = rwkv6_scan_plain(r, k, v, w, u, state0)
+        if out_state is not None:
+            st = out_state.copy_(st)
+        return y, st
+    return _launch(r, k, v, w, u, state0, out_state)
 
 
 rwkv6_scan.launches = 0

@@ -33,6 +33,16 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
+def tree_leaves(tree):
+    """The leaves of nested dicts/lists, in insertion order (``tree_map``'s
+    order; a checkpoint's order is ``training/checkpoint.py``'s)."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
 def rms_norm(x, scale, eps: float = 1e-6):
     dtype = x.dtype
     x = x.float()

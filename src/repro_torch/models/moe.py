@@ -80,8 +80,8 @@ def aux_load_balance_loss(cfg, logits, idx):
     return _balance(E, torch.softmax(logits, dim=-1), counts, idx.numel())
 
 
-def _expert(act, x, w_gate, w_up, w_down, out=None):
-    return torch.matmul(act(x @ w_gate) * (x @ w_up), w_down, out=out)
+def _expert(act, x, w_gate, w_up, w_down):
+    return (act(x @ w_gate) * (x @ w_up)) @ w_down
 
 
 def routed(cfg, p, x2d):
@@ -98,13 +98,18 @@ def routed(cfg, p, x2d):
     counts = torch.bincount(flat, minlength=E)
     tok = order // k                                     # token of each
     xs = x2d[tok]                                        # (T*k, d)
-    ys = torch.empty_like(xs)
-    lo = 0
+    # the expert weights are unbound once, so that under autograd their
+    # gradients are stacked once rather than each expert's index
+    # materialising a zero-filled copy of all E
+    w_gate, w_up, w_down = (p[n].unbind(0)
+                            for n in ("w_gate", "w_up", "w_down"))
+    parts, lo = [], 0
     for e, n in enumerate(counts.tolist()):              # the one sync
         if n:
-            _expert(act, xs[lo:lo + n], p["w_gate"][e], p["w_up"][e],
-                    p["w_down"][e], out=ys[lo:lo + n])
+            parts.append(_expert(act, xs[lo:lo + n], w_gate[e], w_up[e],
+                                 w_down[e]))
         lo += n
+    ys = torch.cat(parts)
     g = gates.reshape(-1)[order].to(ys.dtype)
     out = torch.empty_like(ys).index_copy_(0, order, ys * g[:, None])
     out = out.view(T, k, d).sum(dim=1)

@@ -109,7 +109,10 @@ def rwkv_time_mix(cfg, p, x, state, sx, out_state=None):
     ww = p["w_base"] + (torch.tanh(x_w @ p["w_w1"]) @ p["w_w2"]).float()
     w = torch.exp(-torch.exp(ww.float())).reshape(B, S, H, hd)
 
-    y, state = rwkv6_scan(r, k, v, w, p["u"].float(), state, out_state)
+    # the recurrence runs in float32 whatever the compute dtype, as the
+    # reference's scan step casts r, k, v (and w, float32 already) to it
+    y, state = rwkv6_scan(r.float(), k.float(), v.float(), w,
+                          p["u"].float(), state, out_state)
     y = group_norm_heads(y.to(x.dtype), p["gn_scale"], eps=64e-5)
     out = (y.reshape(B, S, d) * g) @ p["wo"]
     return out, state, new_sx
@@ -190,11 +193,13 @@ def mamba_branch(cfg, p, x, h_state, conv_state):
     xf = x_c.float()
     da = torch.exp(dt[..., None] * A)                       # (B,S,dI,N)
     dbx = (dt * xf)[..., None] * Bc[:, :, None, :]          # (B,S,dI,N)
-    hs = torch.empty_like(da)
     h = h_state.float()
+    steps = []
     for t in range(S):
-        h = torch.addcmul(dbx[:, t], da[:, t], h, out=hs[:, t])
+        h = torch.addcmul(dbx[:, t], da[:, t], h)
+        steps.append(h)
+    hs = torch.stack(steps, dim=1)
     y = torch.einsum("bsdn,bsn->bsd", hs, Cc)
     y = y + p["D"] * xf
     out = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
-    return out, h.clone(), new_conv_state
+    return out, h, new_conv_state

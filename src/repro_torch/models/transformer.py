@@ -168,12 +168,27 @@ def apply_layer(cfg, spec, p, x, ce, pos, block_tables=None, verify=False):
     return x + f_out, ce, aux
 
 
+def _unstack(tree, n):
+    """The ``n`` per-layer trees of a stacked stage element: every leaf
+    unbound along its leading ``repeat`` axis (views). Under autograd one
+    unbind per leaf gathers the layers' gradients into one stacked
+    gradient, where indexing each layer would materialise a zero-filled
+    copy of the whole stacked leaf per layer."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [_unstack(v, n) for v in tree]
+        return [[p[r] for p in parts] for r in range(n)]
+    return tree.unbind(0)
+
+
 def apply_model(cfg: ModelConfig, params, inputs, cache=None, pos=0, *,
                 logits_slice=None, logits_at=None, block_tables=None,
-                verify=False):
+                verify=False, return_aux=False):
     """inputs: int tokens (B,S), or float embeddings (B,S,d) for the
     configurations whose modality frontend is stubbed. Returns (logits,
-    cache).
+    cache), or (logits, cache, aux) with ``return_aux``.
 
     cache/pos implement chunked (partial) prefill and decode (the cache is
     updated in place and returned); cache=None is training/eval over the
@@ -182,9 +197,9 @@ def apply_model(cfg: ModelConfig, params, inputs, cache=None, pos=0, *,
     routes a paged chunk through the speculative verify kernel.
     ``logits_at`` (B,) computes the head only at one per-sequence chunk
     index (exact last-token logits under right-padded bucketed prefill),
-    returning (B,1,vocab). The MoE layers' load-balance losses (the
-    reference's third return value) are not returned: serving has no use
-    for them."""
+    returning (B,1,vocab). ``aux`` is the sum of the MoE layers'
+    load-balance losses (float32; 0 without MoE layers), the reference's
+    third return value, which training adds to the loss."""
     if inputs.is_floating_point():
         x = inputs.to(params["embed"].dtype)
     else:
@@ -197,16 +212,19 @@ def apply_model(cfg: ModelConfig, params, inputs, cache=None, pos=0, *,
         block_tables = torch.as_tensor(block_tables, dtype=torch.int32,
                                        device=x.device)
 
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device) \
+        if return_aux else None
     for si, st in enumerate(cfg.stages):
-        elems = params["stages"][si]
+        layers = [_unstack(e, st.repeat) for e in params["stages"][si]]
         cache_st = cache["stages"][si] if cache is not None else None
         for r in range(st.repeat):
             for ei, spec in enumerate(st.pattern):
                 ce = None if cache_st is None else \
                     tree_map(lambda t: t[r], cache_st[ei])
-                pe = tree_map(lambda t: t[r], elems[ei])
-                x, _, _ = apply_layer(cfg, spec, pe, x, ce, pos,
-                                      block_tables, verify)
+                x, _, aux = apply_layer(cfg, spec, layers[ei][r], x, ce,
+                                        pos, block_tables, verify)
+                if return_aux and aux is not None:
+                    aux_total = aux_total + aux
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if logits_at is not None:
@@ -217,4 +235,6 @@ def apply_model(cfg: ModelConfig, params, inputs, cache=None, pos=0, *,
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head.to(x.dtype)
     logits = softcap(logits, cfg.final_logit_softcap)
+    if return_aux:
+        return logits, cache, aux_total
     return logits, cache

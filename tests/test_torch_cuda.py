@@ -1008,3 +1008,199 @@ def test_reduced_engine_on_card_decodes_cpu_tokens(cuda, arch, paged):
     if paged:
         assert eng.alloc.audit()["ok"]
         assert eng.alloc.free_blocks() == eng.alloc.capacity
+
+
+# ---------------------------------------------------------------------------
+# K6's backward kernel and training on the card
+
+def _k6_grads(fn, xs, dy, ds):
+    """Gradients of sum(y dy) + sum(S ds) through ``fn`` (rwkv6_scan or
+    rwkv6_scan_plain) with respect to all six inputs."""
+    leaves = [x.clone().requires_grad_() for x in xs]
+    y, st = fn(*leaves)
+    return torch.autograd.grad((y * dy).sum() + (st * ds).sum(), leaves)
+
+
+def _rel_err(got, want):
+    return max((g.double() - w.double()).abs().max().item()
+               / w.double().abs().max().item() for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("S", [1, 17, 128, 300])
+def test_rwkv6_scan_bwd_matches_autograd_through_plain(cuda, dtype, hd, S):
+    """rwkv6_scan under autograd (K6 saving its boundary states, then the
+    backward kernel) against autograd through the plain recurrence on the
+    same leaves: dr, dk, dv, dw, du and dstate0 within 1e-4 of each one's
+    largest magnitude for fp32 inputs (summation order), 1e-2 for bf16
+    inputs (bf16 gradients on both sides, which may round one bf16 step
+    apart); one forward and one backward launch."""
+    rs = np.random.RandomState(S * 5 + hd)
+    xs = _scan_inputs(rs, 2, S, 3, hd, cuda, dtype)
+    dy = _randn(rs, (2, S, 3, hd), cuda, torch.float32)
+    ds = _randn(rs, (2, 3, hd, hd), cuda, torch.float32)
+    n0 = (tscan.rwkv6_scan.launches, tscan.rwkv6_scan_bwd.launches)
+    got = _k6_grads(tscan.rwkv6_scan, xs, dy, ds)
+    torch.cuda.synchronize()
+    assert (tscan.rwkv6_scan.launches - n0[0],
+            tscan.rwkv6_scan_bwd.launches - n0[1]) == (1, 1)
+    want = _k6_grads(tscan.rwkv6_scan_plain, xs, dy, ds)
+    assert [g.dtype for g in got] == [w.dtype for w in want]
+    assert _rel_err(got, want) <= (1e-4 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("S", [5, 100])
+def test_rwkv6_scan_bwd_against_float64(cuda, S):
+    """The plain backward in float64 on the card (the kernels take fp32 or
+    bf16 only) equals autograd through the float64 plain recurrence
+    (gradcheck-style, 1e-10), and the kernel's fp32 gradients (from fp32
+    inputs, the final state's gradient absent) are within 1e-5 of that
+    float64 result, as K1 and K5 are held to float64."""
+    rs = np.random.RandomState(S)
+    xs = _scan_inputs(rs, 2, S, 2, 64, cuda, torch.float32)
+    dy = _randn(rs, (2, S, 2, 64), cuda, torch.float32)
+    x64 = [x.double() for x in xs]
+    bnd = []
+    tscan.rwkv6_scan_plain(*x64, boundaries=bnd)
+    plain = tscan.rwkv6_scan_bwd_plain(*x64[:5], torch.stack(bnd),
+                                       dy.double())
+    leaves = [x.clone().requires_grad_() for x in x64]
+    y, _ = tscan.rwkv6_scan_plain(*leaves)
+    auto = torch.autograd.grad((y * dy.double()).sum(), leaves,
+                               allow_unused=True)
+    auto = [torch.zeros_like(x) if a is None else a
+            for x, a in zip(x64, auto)]
+    assert _rel_err(plain, auto) <= 1e-10
+    _, _, bnd32 = tscan.rwkv6_scan_save(*xs)
+    got = tscan.rwkv6_scan_bwd(*xs[:5], bnd32, dy)
+    torch.cuda.synchronize()
+    assert all(g.dtype == torch.float32 for g in got)
+    assert _rel_err(got, auto) <= 1e-5
+
+
+def test_rwkv6_scan_bwd_in_a_cuda_graph(cuda):
+    """K6's training forward and its backward kernel captured in a CUDA
+    graph, replayed after the inputs and dy are rewritten in place: each
+    replay equals eager execution bit for bit."""
+    rs = np.random.RandomState(140)
+    xs = _scan_inputs(rs, 2, 70, 40, 64, cuda, torch.float32)
+    dy = _randn(rs, (2, 70, 40, 64), cuda, torch.float32)
+    ds = _randn(rs, (2, 40, 64, 64), cuda, torch.float32)
+
+    def run():
+        _, _, bnd = tscan.rwkv6_scan_save(*xs)
+        return tscan.rwkv6_scan_bwd(*xs[:5], bnd, dy, ds)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # build, attributes, allocator
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for seed in (1, 2):
+        new = _scan_inputs(np.random.RandomState(seed), 2, 70, 40, 64, cuda,
+                           torch.float32)
+        for a, b in zip(xs, new):
+            a.copy_(b)
+        dy.copy_(_randn(np.random.RandomState(seed), dy.shape, cuda,
+                        torch.float32))
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(outs, run()):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "tinyllama-1.1b"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """One train step of the reduced model (RWKV-6: K6 forward and
+    backward per layer) on the card against the CPU on the same weights
+    and tokens: loss and gnorm within 1e-4 relative, every gradient leaf
+    within 1e-3 of its largest magnitude, the new params within 2 lr (Adam's
+    first step is about lr * sign(g))."""
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.training import train_step as ts
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         torch.float32, "cpu")
+    toks = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (2, 41)))
+    oc = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=4)
+    res = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        leaves = tree_leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = ts.next_token_loss(cfg, p, toks.to(dev),
+                                     compute_dtype=torch.float32)
+        grads = torch.autograd.grad(loss, leaves)
+        for t in leaves:
+            t.requires_grad_(False)
+        n0 = tscan.rwkv6_scan_bwd.launches
+        step = ts.make_train_step(cfg, oc, compute_dtype=torch.float32)
+        _, _, m = step(p, init_opt_state(oc, p), {"tokens": toks.to(dev)})
+        torch.cuda.synchronize()
+        if arch == "rwkv6-3b":
+            assert tscan.rwkv6_scan_bwd.launches - n0 == \
+                (0 if dev == "cpu" else cfg.num_layers)
+        res[str(dev)] = (float(loss.detach()), [g.cpu() for g in grads],
+                         {k: float(v) for k, v in m.items()},
+                         [t.cpu() for t in tree_leaves(p)])
+    (l0, g0, m0, p0), (l1, g1, m1, p1) = res["cpu"], res[str(cuda)]
+    assert l1 == pytest.approx(l0, rel=1e-4)
+    assert _rel_err(g1, g0) <= 1e-3
+    for k in ("loss", "gnorm"):
+        assert m1[k] == pytest.approx(m0[k], rel=1e-4)
+    assert max((a - b).abs().max().item() for a, b in zip(p1, p0)) <= \
+        2 * oc.lr + 1e-5
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "tinyllama-1.1b"])
+def test_bf16_train_step_on_card_matches_cpu(cuda, arch):
+    """One train step of the reduced model at the reference's default
+    compute dtype, bfloat16 (RWKV-6: K6 forward and backward in float32
+    per layer, as the reference's scan step casts to float32), on the card
+    against the CPU on the same weights and tokens: the loss within 1e-3
+    relative, gnorm and every gradient leaf within 5e-2 of their largest
+    magnitude (tests/test_torch_train_bf16.py states why), the new params
+    within 2 lr."""
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.training import train_step as ts
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         torch.float32, "cpu")
+    toks = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (2, 41)))
+    oc = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=4)
+    res = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        leaves = tree_leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        n0 = (tscan.rwkv6_scan.launches, tscan.rwkv6_scan_bwd.launches)
+        loss, _ = ts.next_token_loss(cfg, p, toks.to(dev))
+        grads = torch.autograd.grad(loss, leaves)
+        for t in leaves:
+            t.requires_grad_(False)
+        _, _, m = ts.make_train_step(cfg, oc)(p, init_opt_state(oc, p),
+                                              {"tokens": toks.to(dev)})
+        torch.cuda.synchronize()
+        if arch == "rwkv6-3b":
+            n = 0 if dev == "cpu" else 2 * cfg.num_layers
+            assert (tscan.rwkv6_scan.launches - n0[0],
+                    tscan.rwkv6_scan_bwd.launches - n0[1]) == (n, n)
+        res[str(dev)] = (float(loss.detach()), [g.cpu() for g in grads],
+                         {k: float(v) for k, v in m.items()},
+                         [t.cpu() for t in tree_leaves(p)])
+    (l0, g0, m0, p0), (l1, g1, m1, p1) = res["cpu"], res[str(cuda)]
+    assert l1 == pytest.approx(l0, rel=1e-3)
+    assert m1["loss"] == pytest.approx(m0["loss"], rel=1e-3)
+    assert _rel_err(g1, g0) <= 5e-2
+    assert m1["gnorm"] == pytest.approx(m0["gnorm"], rel=5e-2)
+    assert max((a - b).abs().max().item() for a, b in zip(p1, p0)) <= \
+        2 * oc.lr + 1e-5
