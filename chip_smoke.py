@@ -97,7 +97,8 @@ call); a wrapper that launched in that query and is charged no device time
 fails the run.
 
 --timing is not the smoke run: it runs only the timed phases (the kernels
-of phase 3 and 7, K6's decode step cold and warm, and the RWKV-6 serve
+of phase 3 and 7, K6's decode step cold and warm, K6's training forward
+and backward at batch 2 x 512 as in phase 11 (a), and the RWKV-6 serve
 path with its profiled query) and prints no result line. With --src DIR
 (accepted only with --timing) it takes repro_torch from DIR, so that two
 trees' kernels are timed by the same code in one chip call, e.g. a parent
@@ -1756,8 +1757,6 @@ def train_k6(dev, card) -> dict:
     against autograd through rwkv6_scan_plain on the same leaves, at
     RWKV-6 3B's heads, batch 2, S in (1, 100, 128, 512), fp32 and bf16,
     with the final state's gradient; then timed at S = 512, fp32."""
-    from repro_torch.kernels.rwkv6_scan import (SAVE_EVERY, rwkv6_scan_bwd,
-                                                rwkv6_scan_save)
     res = {"max_abs_err": 0.0}
     for S in (1, 100, 128, 512):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1784,6 +1783,17 @@ def train_k6(dev, card) -> dict:
                 raise AssertionError(f"K6 backward S={S} {dtype}: {err}")
             if dtype == torch.float32:
                 res["max_abs_err"] = max(res["max_abs_err"], abs_err)
+    res.update(time_k6_bwd(dev, card))
+    return res
+
+
+def time_k6_bwd(dev, card) -> dict:
+    """K6's training forward (saving its boundary states) and its backward
+    timed at B=2, S=512, RWKV-6 3B's heads, fp32, beside autograd through
+    the plain recurrence and the bound; also in --timing, so that two
+    trees' backward kernels are timed by the same code in one call."""
+    from repro_torch.kernels.rwkv6_scan import (SAVE_EVERY, rwkv6_scan_bwd,
+                                                rwkv6_scan_save)
     xs = _scan_case(2, 512, 40, 64, dev, torch.float32)
     gen = torch.Generator(device=dev).manual_seed(0)
     dy = torch.randn(xs[0].shape, generator=gen, device=dev)
@@ -1807,10 +1817,18 @@ def train_k6(dev, card) -> dict:
           f"{bound:.4f} ms ({by}, {K6_BWD_OPS}*hd^2 per step), "
           f"{saves:.4f} ms ({saves_by}) with the saved states read back; no "
           f"single PyTorch call computes it [{card}]")
-    res.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
-               bound_by=by, with_saves_bound_ms=saves, library_ms=None,
-               library_device_ms=None, fwd_save_device_ms=fwd_ms)
-    return res
+    # the backward at half and twice the batch: how its time follows its
+    # grid (B * H * hd / 16 CTAs on the card's SMs)
+    for B in (1, 4):
+        xb = _scan_case(B, 512, 40, 64, dev, torch.float32)
+        dyb = torch.randn(xb[0].shape, generator=gen, device=dev)
+        _, _, bb = rwkv6_scan_save(*xb)
+        print(f"[train] K6 backward at B={B} S=512 H=40 hd=64 fp32: device "
+              f"{_fmt(device_ms(lambda: rwkv6_scan_bwd(*xb[:5], bb, dyb)))}"
+              f" [{card}]")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, with_saves_bound_ms=saves, library_ms=None,
+                library_device_ms=None, fwd_save_device_ms=fwd_ms)
 
 
 def _train_batch(cfg, dev, seed=SEED):
@@ -2558,6 +2576,7 @@ def main() -> int:
         phase_kernels(dev)
         phase_paged_kernels(dev)
         phase_rwkv_kernel(dev)
+        time_k6_bwd(dev, card)
         phase_serve(dev, card, RWKV, (rwkv6_scan,), "rwkv-serve")
         return 0
     start = time.time()

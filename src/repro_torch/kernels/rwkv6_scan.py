@@ -28,10 +28,19 @@ CPU tensors. The reference has no backward kernel: it differentiates a
 checkpointed ``lax.scan`` (``repro/models/ssm.py``), which checkpoints
 every 128 steps; the port saves every 16 (the forward kernel's chunk),
 ``B*H*hd^2*4`` bytes each (1.31 MB at RWKV-6 3B's heads, batch 2).
+The backward kernel is a row split of each ``(b, h)`` over a thread
+block cluster of ``hd / 16`` CTAs: each thread keeps 2 rows x 4 columns
+of the state's gradient in registers and 8 recomputed states of them;
+its partial row and column sums go through shared memory and are added
+once per sub-chunk of 8 steps, in a fixed order, and only dv's column
+sums cross CTAs, through the cluster's shared memory. Its header says
+what bounds it on the H100 and what its design does about that.
 
-``rwkv6_scan_split_plain`` mirrors the kernel's order of summation in
-plain PyTorch (the row-group partials, the hoisted bonus term). Only the
-tests use it.
+``rwkv6_scan_split_plain`` and ``rwkv6_scan_bwd_split_plain`` mirror the
+two kernels' orders of summation in plain PyTorch (the forward's
+row-group partials and hoisted bonus term; the backward's per-thread
+partials, per-CTA and per-cluster sums and deferred bonus terms). Only
+the tests use them.
 """
 from __future__ import annotations
 
@@ -46,6 +55,10 @@ HEAD_DIMS = (32, 64)
 # steps between the states the training forward saves: the forward
 # kernel's chunk (TC_PREFILL in csrc/rwkv6_scan.cu, TC in rwkv6_scan_bwd.cu)
 SAVE_EVERY = 16
+
+# the backward kernel's shape (RB, R, C, U in csrc/rwkv6_scan_bwd.cu):
+# state rows per CTA, rows and columns per thread, steps per sub-chunk
+BWD_ROWS, BWD_THREAD_ROWS, BWD_THREAD_COLS, BWD_SUB = 16, 2, 4, 8
 
 _count_lock = threading.Lock()
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -157,6 +170,96 @@ def rwkv6_scan_split_plain(r, k, v, w, u, state0, rows=None):
     return torch.stack(ys, dim=1), st
 
 
+def _seq_sum(x, dim):
+    """Sum over ``dim`` one term after another, in index order."""
+    acc = x.select(dim, 0)
+    for i in range(1, x.shape[dim]):
+        acc = acc + x.select(dim, i)
+    return acc
+
+
+def _tree_sum(x):
+    """Sum over the last dim (a power of two) as a warp's xor-shuffle
+    butterfly leaves it in lane 0: halves added pairwise."""
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
+def rwkv6_scan_bwd_split_plain(r, k, v, w, u, boundaries, dy, dstate=None):
+    """The backward kernel's arithmetic in plain PyTorch, float32 (tests
+    only); same arguments and results as ``rwkv6_scan_bwd_plain``. Each
+    (b, h) is split into blocks of BWD_ROWS state rows (a CTA of the
+    kernel; one block of all rows when hd is smaller), each block into
+    threads of BWD_THREAD_ROWS rows x BWD_THREAD_COLS columns. Per chunk of
+    SAVE_EVERY steps, v_t . dy_t and each block's share of the bonus sum
+    (r_t u k_t over its rows) are sums over the kernel's lanes per step (a
+    butterfly); per sub-chunk of BWD_SUB
+    steps, the later first, the states are recomputed from the chunk's
+    boundary and each step's thread partials kept (dr, dk, dw of a
+    thread's rows over its columns, dv of its columns over its rows, each
+    a sum in order); after the sub-chunk dr, dk, dw add their threads'
+    partials in column order and then the bonus terms, and dv adds them in
+    row order per block, the blocks in order, then the bonus sum (the
+    blocks' shares in order) times dy_t. du adds r_t k_t (v_t . dy_t) per
+    step, the steps of a chunk in order, the chunks from the last."""
+    rf, kf, vf, wf, dyf = [a.float() for a in (r, k, v, w, dy)]
+    uf = u.float()
+    B, S, H, hd = r.shape
+    RB, R, C = min(BWD_ROWS, hd), BWD_THREAD_ROWS, BWD_THREAD_COLS
+    NB, RG, NCG = hd // RB, RB // R, hd // C
+    lanes = max(1, RG * NCG // SAVE_EVERY)
+    ds = torch.zeros((B, H, hd, hd), device=r.device) if dstate is None \
+        else dstate.float().clone()
+    dr, dk, dv, dw = [torch.empty((B, S, H, hd), device=r.device)
+                      for _ in range(4)]
+    du = torch.zeros((B, H, hd), device=r.device)
+    for n in reversed(range(boundaries.shape[0])):
+        t0, t1 = n * SAVE_EVERY, min(S, (n + 1) * SAVE_EVERY)
+        vdy = {t: _tree_sum(_seq_sum(
+            (vf[:, t] * dyf[:, t]).reshape(B, H, lanes, hd // lanes), -1))
+            for t in range(t0, t1)}                              # (B,H)
+        bonp = {t: _tree_sum(_seq_sum(
+            (rf[:, t] * uf * kf[:, t]).reshape(B, H, NB, lanes, RB // lanes),
+            -1)) for t in range(t0, t1)}                         # (B,H,NB)
+        for a0 in reversed(range(t0, t1, BWD_SUB)):
+            a1 = min(t1, a0 + BWD_SUB)
+            st = boundaries[n].float()
+            for t in range(t0, a0):
+                st = wf[:, t, :, :, None] * st + \
+                    kf[:, t, :, :, None] * vf[:, t, :, None, :]
+            prev = []
+            for t in range(a0, a1):
+                prev.append(st)
+                st = wf[:, t, :, :, None] * st + \
+                    kf[:, t, :, :, None] * vf[:, t, :, None, :]
+            parts = {}
+            for t in reversed(range(a0, a1)):
+                sp = prev[t - a0].reshape(B, H, hd, NCG, C)
+                d4 = ds.reshape(B, H, hd, NCG, C)
+                dyc = dyf[:, t].reshape(B, H, 1, NCG, C)
+                vc = vf[:, t].reshape(B, H, 1, NCG, C)
+                pv = _seq_sum((ds * kf[:, t, :, :, None]).reshape(
+                    B, H, NB, RG, R, hd), 4)              # (B,H,NB,RG,hd)
+                parts[t] = (_seq_sum(sp * dyc, -1), _seq_sum(d4 * vc, -1),
+                            _seq_sum(d4 * sp, -1), pv)
+                ds = wf[:, t, :, :, None] * ds + \
+                    rf[:, t, :, :, None] * dyf[:, t, :, None, :]
+            for t in range(a0, a1):
+                pr, pk, pw, pv = parts[t]
+                dr[:, t] = _seq_sum(pr, -1) + uf * kf[:, t] * \
+                    vdy[t][..., None]
+                dk[:, t] = _seq_sum(pk, -1) + rf[:, t] * uf * \
+                    vdy[t][..., None]
+                dw[:, t] = _seq_sum(pw, -1)
+                dv[:, t] = _seq_sum(_seq_sum(pv, 3), 2) + \
+                    _seq_sum(bonp[t], -1)[..., None] * dyf[:, t]
+        for t in range(t0, t1):
+            du = du + rf[:, t] * kf[:, t] * vdy[t][..., None]
+    return dr, dk, dv, dw, du.sum(0), ds
+
+
 def _check(r, k, v, w, u, state0, out_state):
     B, S, H, hd = r.shape
     if S < 1 or hd not in HEAD_DIMS:
@@ -237,10 +340,10 @@ def rwkv6_scan_bwd(r, k, v, w, u, boundaries, dy, dstate=None):
             dy.shape != r.shape or \
             (dstate is not None and dstate.shape != (B, H, hd, hd)) or \
             any(t.dtype != torch.float32 or t.device != r.device or
-                not t.is_contiguous() for t in ts) or dy.data_ptr() % 16:
+                not t.is_contiguous() or t.data_ptr() % 16 for t in ts):
         raise ValueError("rwkv6_scan_bwd: boundaries, dy and dstate must "
-                         "be contiguous float32 of K6's shapes on r's "
-                         "device, dy 16-byte aligned")
+                         "be contiguous, 16-byte aligned float32 of K6's "
+                         "shapes on r's device")
     dr, dk, dv, dw = [torch.empty(r.shape, dtype=torch.float32,
                                   device=r.device) for _ in range(4)]
     du = torch.empty((B, H, hd), dtype=torch.float32, device=r.device)

@@ -1028,7 +1028,7 @@ def _rel_err(got, want):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [32, 64])
-@pytest.mark.parametrize("S", [1, 17, 128, 300])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 33, 128, 300])
 def test_rwkv6_scan_bwd_matches_autograd_through_plain(cuda, dtype, hd, S):
     """rwkv6_scan under autograd (K6 saving its boundary states, then the
     backward kernel) against autograd through the plain recurrence on the
@@ -1048,6 +1048,58 @@ def test_rwkv6_scan_bwd_matches_autograd_through_plain(cuda, dtype, hd, S):
     want = _k6_grads(tscan.rwkv6_scan_plain, xs, dy, ds)
     assert [g.dtype for g in got] == [w.dtype for w in want]
     assert _rel_err(got, want) <= (1e-4 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("B", [1, 2, 4])
+def test_rwkv6_scan_bwd_at_full_heads(cuda, B):
+    """RWKV-6 3B's heads (H = 40, hd = 64) at S = 512, fp32: the backward
+    kernel's gradients against autograd through the plain recurrence within
+    1e-4 of each one's largest magnitude, one launch each way."""
+    rs = np.random.RandomState(B)
+    xs = _scan_inputs(rs, B, 512, 40, 64, cuda, torch.float32)
+    dy = _randn(rs, (B, 512, 40, 64), cuda, torch.float32)
+    ds = _randn(rs, (B, 40, 64, 64), cuda, torch.float32)
+    n0 = (tscan.rwkv6_scan.launches, tscan.rwkv6_scan_bwd.launches)
+    got = _k6_grads(tscan.rwkv6_scan, xs, dy, ds)
+    torch.cuda.synchronize()
+    assert (tscan.rwkv6_scan.launches - n0[0],
+            tscan.rwkv6_scan_bwd.launches - n0[1]) == (1, 1)
+    assert _rel_err(got, _k6_grads(tscan.rwkv6_scan_plain, xs, dy, ds)) \
+        <= 1e-4
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("S", [15, 16, 33, 100])
+def test_rwkv6_scan_bwd_matches_split_plain(cuda, hd, S):
+    """The backward kernel against the mirror of its order of summation
+    (rwkv6_scan_bwd_split_plain) on the same card, fp32, with and without
+    the final state's gradient: within 1e-6 of each gradient's largest
+    magnitude (the two differ in fused multiply-adds only)."""
+    rs = np.random.RandomState(S + hd)
+    xs = _scan_inputs(rs, 2, S, 3, hd, cuda, torch.float32)
+    dy = _randn(rs, (2, S, 3, hd), cuda, torch.float32)
+    ds = _randn(rs, (2, 3, hd, hd), cuda, torch.float32)
+    _, _, bnd = tscan.rwkv6_scan_save(*xs)
+    for dstate in (None, ds):
+        got = tscan.rwkv6_scan_bwd(*xs[:5], bnd, dy, dstate)
+        want = tscan.rwkv6_scan_bwd_split_plain(*xs[:5], bnd, dy, dstate)
+        torch.cuda.synchronize()
+        assert _rel_err(got, want) <= 1e-6
+
+
+def test_rwkv6_scan_bwd_is_deterministic(cuda):
+    """Two calls of the backward kernel on the same inputs are equal bit
+    for bit (every sum in a fixed order, no atomics)."""
+    rs = np.random.RandomState(77)
+    xs = _scan_inputs(rs, 2, 100, 40, 64, cuda, torch.float32)
+    dy = _randn(rs, (2, 100, 40, 64), cuda, torch.float32)
+    ds = _randn(rs, (2, 40, 64, 64), cuda, torch.float32)
+    _, _, bnd = tscan.rwkv6_scan_save(*xs)
+    first = tscan.rwkv6_scan_bwd(*xs[:5], bnd, dy, ds)
+    second = tscan.rwkv6_scan_bwd(*xs[:5], bnd, dy, ds)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("S", [5, 100])
