@@ -7,11 +7,13 @@
 Phases, in order; any failure exits non-zero:
   1. toolchain: the card (nvidia-smi), torch / CUDA versions, nvcc, triton.
   2. build: nvcc compiles every kernel source, all at once; per kernel,
-     registers and spills from ptxas; the tensor-core instructions in
-     the SASS of K1 and K5, which share the tile kernel (cuobjdump).
+     registers and spills from ptxas, and the hd 256 instantiations of
+     K1-K5 together; the tensor-core instructions in the SASS of K1 and
+     K5, which share the tile kernel (cuobjdump).
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the card, at the main paths' shapes (TinyLlama-1.1B's heads, and
-     Qwen1.5-MoE-A2.7B's at batch 4; the paged kernels over a 129-block x
+     Qwen1.5-MoE-A2.7B's and Gemma-2 9B's (hd 256, cap 50, window 64,
+     fp32 K/V too) at batch 4; the paged kernels over a 129-block x
      16 bf16 pool with shuffled physical blocks and two rows sharing
      prefix blocks); the raw profiler records held against
      key_averages() on one profile; then each kernel timed beside its plain
@@ -44,8 +46,10 @@ Phases, in order; any failure exits non-zero:
      DeepSeek-V3's dense-FFN stage (MLA at 128 heads; dense cache and
      paged pool), Hymba-1.5B (hybrid, windowed), ChatGLM3-6B (G = 16, half
      RoPE, QKV bias), DeepSeek-67B (G = 8), MusicGen-medium and
-     InternVL2-26B on embedding inputs; K1/K2 (K3-K5 on the pool) launch
-     wherever the attention is GQA over a linear cache; the CPU run
+     InternVL2-26B on embedding inputs, Gemma-2 9B (a local and a global
+     layer, hd 256, softcap; dense cache and paged pool); K1/K2 (K3-K5 on
+     the pool) launch wherever the attention is GQA over a linear cache
+     (Gemma-2's global layers; its local ones keep a ring); the CPU run
      replays the card's MoE top-k choices, so every row is held; a choice
      the CPU would have made otherwise is printed and must be a near-tie.
   9. moe: naive-RAG under Teola with the full 24-layer Qwen1.5-MoE-A2.7B
@@ -59,6 +63,15 @@ Phases, in order; any failure exits non-zero:
  10. hybrid: the same with the full 32-layer Hymba-1.5B on the dense
      path; its Mamba branch timed at a decode step and a 512-token
      prefill.
+ 10b. gemma: the same as phase 9 with the full 42-layer Gemma-2 9B
+     (fp32, ~34 GiB) as the core LLM, dense then paged: K1/K2 on its 21
+     global layers, K3-K5 on every layer, every launch at hd 256; the
+     whole model paged vs dense within 1e-2 of the logits' scale.
+     After each paged phase ([moe], [gemma]) the first answer that
+     differs from the dense path's is traced through the core LLM's
+     generations: other token ids (the first diverging token, its top-2
+     logit gap on each form replayed at batch 1, and Qwen's top-k gate
+     gap there) or the same ids decoded to other text.
  11. train: training on the card. (a) K6's backward kernel, through
      rwkv6_scan's autograd Function, against autograd through the plain
      recurrence at RWKV-6 3B's heads (batch 2, S 1 / 100 / 128 / 512,
@@ -86,6 +99,8 @@ Phases, in order; any failure exits non-zero:
      replica 1 and its recovery, (d) disaggregated prefill/decode with KV
      migration, (e) overload control shedding part of a burst; every paged
      pool audits clean after release.
+ 13b. examples: repro_torch/examples/ quickstart, serve_batched and
+     colocated_apps once each on the card (their printed lines checked).
  14. exit: ``python -m repro_torch.launch.serve`` in a process of its own
      serves one query and exits with 0.
 
@@ -122,6 +137,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 TIMING = "--timing" in sys.argv
@@ -157,6 +173,7 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import (rwkv6_scan,  # noqa: E402
                                             rwkv6_scan_plain)
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.models.common import tree_leaves  # noqa: E402
 from repro_torch.models.transformer import apply_model, init_params  # noqa: E402
 from repro_torch.serving import kv_cache as kvc  # noqa: E402
 from repro_torch.training.data import doc_corpus  # noqa: E402
@@ -178,6 +195,8 @@ MODEL_TOL = 1e-2
 H, K, HD, T = 32, 4, 64, 512          # TinyLlama-1.1B attention, max_len
 TINY_HEADS = (H, K, HD)
 QWEN_HEADS = (16, 16, 128)            # Qwen1.5-MoE-A2.7B attention (G = 1)
+GEMMA_HEADS = (16, 8, 256)            # Gemma-2 9B attention (G = 2, hd 256)
+GEMMA_CAP = 50.0                      # its attention-logit softcap
 NB, BS = 129, 16                      # the serve path's paged pool
 SEED = 0
 PAGED = [paged_decode_attention, verify_attention, chunk_prefill_attention]
@@ -350,11 +369,23 @@ def phase_build():
     log = build.build_all()
     print(f"[build] {len(log)} kernel libraries in {time.time() - t0:.1f} s "
           f"(nvcc in parallel)")
+    hd256 = []
     for name, rec in log.items():
         print(f"[build] {name}: {rec['seconds']:.1f} s")
         for kern, regs, st, ld in ptxas_kernels(rec["ptxas"]):
             print(f"[build]   {kern}: {regs} registers per thread, spills "
                   f"{st} B stored / {ld} B loaded")
+            if "<256," in kern:
+                hd256.append((kern, regs, st, ld))
+    # the hd 256 instantiations of K1-K5 (Gemma-2's head dim), together
+    for kern, regs, st, ld in hd256:
+        print(f"[build] hd 256: {kern}: {regs} registers, spills {st} B "
+              f"stored / {ld} B loaded")
+    print(f"[build] hd 256: {len(hd256)} instantiations, "
+          f"{sum(1 for r in hd256 if r[2] or r[3])} with spills, at most "
+          f"{max((r[1] for r in hd256), default=0)} registers")
+    if not hd256:
+        raise AssertionError("no hd 256 instantiation was built")
     for name in ("flash_prefill", "chunk_prefill"):
         ops = sass_tensor_ops(log[name]["path"])
         print(f"[build] {name} SASS: {ops['HGMMA']} HGMMA, {ops['HMMA']} "
@@ -366,18 +397,18 @@ def phase_build():
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions, timed
 
-def _kv(B, rs, dev, kh=K, hd=HD):
+def _kv(B, rs, dev, kh=K, hd=HD, kvdt=torch.bfloat16):
     return [torch.from_numpy(rs.standard_normal((B, T, kh, hd)).astype(
-        np.float32)).to(dev, torch.bfloat16) for _ in range(2)]
+        np.float32)).to(dev, kvdt) for _ in range(2)]
 
 
 def _prefill_case(B, Sq, prefix, dev, window=None, cap=None,
-                  qdt=torch.float32, heads=TINY_HEADS):
+                  qdt=torch.float32, heads=TINY_HEADS, kvdt=torch.bfloat16):
     nh, kh, hd = heads
     rs = np.random.RandomState(B * 1000 + Sq)
     q = torch.from_numpy(rs.standard_normal((B, Sq, nh, hd)).astype(
         np.float32)).to(dev, qdt)
-    k, v = _kv(B, rs, dev, kh, hd)
+    k, v = _kv(B, rs, dev, kh, hd, kvdt)
     pre = torch.tensor(prefix, dtype=torch.int32, device=dev)
     kw = dict(prefix_len=pre, window=window, cap=cap)
     return (q, k, v, kw)
@@ -394,21 +425,27 @@ def _decode_case(B, length, dev, window=None, cap=None, qdt=torch.float32,
     return (q, k, v, ln, dict(window=window, cap=cap))
 
 
-def _prefill_work(q, prefix):
-    B, Sq = q.shape[:2]
+def _kv_row_bytes(k):
+    """Bytes of one key's K and V rows over the kv heads."""
+    return k.shape[-2] * k.shape[-1] * k.element_size() * 2
+
+
+def _prefill_work(q, prefix, k):
+    B, Sq, nh, hd = q.shape
     pre = prefix.tolist()
     kv_rows = sum(min(T, p + Sq) for p in pre)
     nbytes = (q.numel() * q.element_size() * 2           # q in, o out
-              + kv_rows * K * HD * 2 * 2)                 # bf16 k and v
+              + kv_rows * _kv_row_bytes(k))               # k and v
     keys = sum(p * Sq + Sq * (Sq + 1) // 2 for p in pre)  # causal pairs
-    flops = 4 * HD * H * keys
+    flops = 4 * hd * nh * keys
     return nbytes, flops
 
 
-def _decode_work(q, length):
+def _decode_work(q, length, k):
+    B, nh, hd = q.shape
     kv_rows = sum(min(T, n) for n in length.tolist())
-    nbytes = q.numel() * q.element_size() * 2 + kv_rows * K * HD * 2 * 2
-    flops = 4 * HD * H * kv_rows
+    nbytes = q.numel() * q.element_size() * 2 + kv_rows * _kv_row_bytes(k)
+    flops = 4 * hd * nh * kv_rows
     return nbytes, flops
 
 
@@ -455,9 +492,55 @@ def _sdpa_decode(q, k, v, length):
     return _sdpa(qh, kh, vh, mask)
 
 
+def _hd256_here() -> bool:
+    """Whether the tree under test has the hd 256 kernels. Only --timing
+    may run a tree without them (a parent commit under --src); the smoke
+    run always holds them."""
+    return not TIMING or 256 in getattr(build, "HEAD_DIMS", ())
+
+
+def _time_prefill(q, k, v, kw, label):
+    """K1 timed beside its plain version and SDPA (which applies no
+    softcap: no single PyTorch call does). Returns the kernel's record."""
+    ms = cuda_ms(lambda: flash_prefill(q, k, v, **kw))
+    dev_ms = device_ms(lambda: flash_prefill(q, k, v, **kw))
+    plain = cuda_ms(lambda: flash_prefill_plain(q, k, v, **kw))
+    sdpa = _sdpa_prefill(q, k, v, kw["prefix_len"])
+    lib, lib_dev = cuda_ms(sdpa), device_ms(sdpa)
+    nbytes, flops = _prefill_work(q, kw["prefix_len"], k)
+    bound, by = _bound(nbytes, flops)
+    tc_bound, tc_by = _bound(nbytes, TILE_PIECES * flops, BF16_TC_FLOPS)
+    print(f"[kernels] flash_prefill {label}: kernel {ms:.4f} ms (device "
+          f"{_fmt(dev_ms)}), plain {plain:.4f} ms, sdpa {lib:.4f} ms (device "
+          f"{_fmt(lib_dev)}), bound {bound:.4f} ms ({by}, fp32 at 67 "
+          f"TFLOP/s), tensor-core bound {tc_bound:.4f} ms ({tc_by}, "
+          f"{TILE_PIECES} bf16 products per fp32 one at 989 TFLOP/s)")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by, tc_bound_ms=tc_bound, library_ms=lib,
+                library_device_ms=lib_dev)
+
+
+def _time_decode(q, k, v, ln, kw, label):
+    """K2 timed beside its plain version and SDPA."""
+    ms = cuda_ms(lambda: decode_attention(q, k, v, ln, **kw))
+    dev_ms = device_ms(lambda: decode_attention(q, k, v, ln, **kw))
+    plain = cuda_ms(lambda: decode_attention_plain(q, k, v, ln, **kw))
+    sdpa = _sdpa_decode(q, k, v, ln)
+    lib, lib_dev = cuda_ms(sdpa), device_ms(sdpa)
+    nbytes, flops = _decode_work(q, ln, k)
+    bound, by = _bound(nbytes, flops)
+    print(f"[kernels] decode_attention {label}: kernel {ms:.4f} ms (device "
+          f"{_fmt(dev_ms)}: split + combine), plain {plain:.4f} ms, sdpa "
+          f"{lib:.4f} ms (device {_fmt(lib_dev)}), bound {bound:.4f} ms "
+          f"({by})")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by, library_ms=lib, library_device_ms=lib_dev)
+
+
 def phase_kernels(dev) -> dict:
     """Returns {kernel: {max_abs_err, ms, plain_ms, bound_ms, bound_by,
-    library_ms}} at the representative main-path shape."""
+    library_ms, ...}} at the representative main-path shape, with the
+    same at Gemma-2's heads under "hd256"."""
     res = {"flash_prefill": {"max_abs_err": 0.0},
            "decode_attention": {"max_abs_err": 0.0}}
 
@@ -470,33 +553,50 @@ def phase_kernels(dev) -> dict:
             raise AssertionError(f"{name} {label}: {err} > {tol}")
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
 
-    f32, tiny, qwen = torch.float32, TINY_HEADS, QWEN_HEADS
+    f32, bf16, tiny, qwen = (torch.float32, torch.bfloat16, TINY_HEADS,
+                             QWEN_HEADS)
+    pre4 = [0, 37, 100, 200]
     cases = []
     for B in (1, 4):
         for Sq in (64, 256):
-            prefix = [0, 37, 100, 200][:B]
-            cases.append((B, Sq, prefix, None, None, f32, tiny))
-    cases.append((4, 256, [0, 37, 100, 200], 100, 50.0, f32, tiny))
-    cases.append((4, 128, [0, 37, 100, 200], None, None, torch.bfloat16,
-                  tiny))
+            cases.append((B, Sq, pre4[:B], None, None, f32, tiny, bf16))
+    cases.append((4, 256, pre4, 100, 50.0, f32, tiny, bf16))
+    cases.append((4, 128, pre4, None, None, bf16, tiny, bf16))
     # Qwen1.5-MoE's heads, at the [moe] dense path's batch bucket
-    cases += [(1, 100, [0], None, None, f32, qwen),
-              (4, 128, [0, 37, 100, 200], None, None, f32, qwen)]
-    for B, Sq, prefix, window, cap, qdt, heads in cases:
+    cases += [(1, 100, [0], None, None, f32, qwen, bf16),
+              (4, 128, pre4, None, None, f32, qwen, bf16)]
+    gemma = GEMMA_HEADS
+    if _hd256_here():
+        # Gemma-2 9B's heads at the [gemma] path's batch bucket: its global
+        # layers' shape (cap 50), the window of its local layers, a bf16
+        # q, and fp32 K/V (the CUDA-core body)
+        cases += [(4, 256, pre4, None, GEMMA_CAP, f32, gemma, bf16),
+                  (4, 256, pre4, 64, GEMMA_CAP, f32, gemma, bf16),
+                  (4, 128, pre4, None, GEMMA_CAP, bf16, gemma, bf16),
+                  (4, 256, pre4, 64, GEMMA_CAP, f32, gemma, f32)]
+    else:
+        print("[kernels] hd 256 cases: this tree has no hd 256 kernels")
+    for B, Sq, prefix, window, cap, qdt, heads, kvdt in cases:
         q, k, v, kw = _prefill_case(B, Sq, prefix, dev, window, cap, qdt,
-                                    heads)
+                                    heads, kvdt)
         got = flash_prefill(q, k, v, **kw)
         torch.cuda.synchronize()
         check("flash_prefill", got, flash_prefill_plain(q, k, v, **kw), qdt,
               f"B={B} Sq={Sq} prefix={prefix} window={window} cap={cap} "
-              f"q={str(qdt)[6:]} H,K,hd={heads}")
+              f"q={str(qdt)[6:]} kv={str(kvdt)[6:]} H,K,hd={heads}")
+    lens = [1, 130, 300, 512]
     dcases = [(1, [300], None, None, f32, tiny),
-              (4, [1, 130, 300, 512], None, None, f32, tiny),
-              (4, [1, 130, 300, 512], 64, 50.0, f32, tiny),
-              (4, [1, 130, 300, 512], None, None, torch.bfloat16, tiny),
+              (4, lens, None, None, f32, tiny),
+              (4, lens, 64, 50.0, f32, tiny),
+              (4, lens, None, None, bf16, tiny),
               (4, [63, 64, 65, 511], None, None, f32, tiny),
-              (4, [1, 130, 300, 512], None, None, f32, qwen),
+              (4, lens, None, None, f32, qwen),
               (4, [63, 64, 65, 511], None, None, f32, qwen)]
+    if _hd256_here():
+        dcases += [(4, lens, None, GEMMA_CAP, f32, gemma),
+                   (4, lens, 64, GEMMA_CAP, f32, gemma),
+                   (4, lens, None, GEMMA_CAP, bf16, gemma),
+                   (4, [63, 64, 65, 511], None, GEMMA_CAP, f32, gemma)]
     for B, length, window, cap, qdt, heads in dcases:
         q, k, v, ln, kw = _decode_case(B, length, dev, window, cap, qdt,
                                        heads)
@@ -508,49 +608,31 @@ def phase_kernels(dev) -> dict:
               f"q={str(qdt)[6:]} H,K,hd={heads}")
 
     # the profiler reading that every device time below rests on
-    q, k, v, ln, _ = _decode_case(4, [1, 130, 300, 512], dev)
+    q, k, v, ln, _ = _decode_case(4, lens, dev)
     check_device_records(lambda: decode_attention(q, k, v, ln))
 
     # timings at the representative main-path shapes (batch bucket 4)
     for B, Sq in ((1, 64), (4, 64), (4, 256)):
-        prefix = [0, 37, 100, 200][:B]
+        prefix = pre4[:B]
         q, k, v, kw = _prefill_case(B, Sq, prefix, dev)
-        ms = cuda_ms(lambda: flash_prefill(q, k, v, **kw))
-        dev_ms = device_ms(lambda: flash_prefill(q, k, v, **kw))
-        plain = cuda_ms(lambda: flash_prefill_plain(q, k, v, **kw))
-        sdpa = _sdpa_prefill(q, k, v, kw["prefix_len"])
-        lib, lib_dev = cuda_ms(sdpa), device_ms(sdpa)
-        nbytes, flops = _prefill_work(q, kw["prefix_len"])
-        bound, by = _bound(nbytes, flops)
-        tc_bound, tc_by = _bound(nbytes, TILE_PIECES * flops, BF16_TC_FLOPS)
-        print(f"[kernels] flash_prefill B={B} Sq={Sq} T={T} prefix={prefix}"
-              f": kernel {ms:.4f} ms (device {_fmt(dev_ms)}), plain "
-              f"{plain:.4f} ms, sdpa {lib:.4f} ms (device {_fmt(lib_dev)}), "
-              f"bound {bound:.4f} ms ({by}, fp32 at 67 TFLOP/s), "
-              f"tensor-core bound {tc_bound:.4f} ms ({tc_by}, {TILE_PIECES} "
-              f"bf16 products per fp32 one at 989 TFLOP/s)")
-        res["flash_prefill"].update(ms=ms, device_ms=dev_ms, plain_ms=plain,
-                                    bound_ms=bound, bound_by=by,
-                                    tc_bound_ms=tc_bound,
-                                    library_ms=lib,
-                                    library_device_ms=lib_dev)
-    for B, length in ((1, [300]), (4, [1, 130, 300, 512])):
+        res["flash_prefill"].update(_time_prefill(
+            q, k, v, kw, f"B={B} Sq={Sq} T={T} prefix={prefix}"))
+    for B, length in ((1, [300]), (4, lens)):
         q, k, v, ln, kw = _decode_case(B, length, dev)
-        ms = cuda_ms(lambda: decode_attention(q, k, v, ln))
-        dev_ms = device_ms(lambda: decode_attention(q, k, v, ln))
-        plain = cuda_ms(lambda: decode_attention_plain(q, k, v, ln))
-        sdpa = _sdpa_decode(q, k, v, ln)
-        lib, lib_dev = cuda_ms(sdpa), device_ms(sdpa)
-        nbytes, flops = _decode_work(q, ln)
-        bound, by = _bound(nbytes, flops)
-        print(f"[kernels] decode_attention B={B} T={T} length={length}: "
-              f"kernel {ms:.4f} ms (device {_fmt(dev_ms)}: split + "
-              f"combine), plain {plain:.4f} ms, sdpa {lib:.4f} ms (device "
-              f"{_fmt(lib_dev)}), bound {bound:.4f} ms ({by})")
-        res["decode_attention"].update(ms=ms, device_ms=dev_ms,
-                                       plain_ms=plain, bound_ms=bound,
-                                       bound_by=by, library_ms=lib,
-                                       library_device_ms=lib_dev)
+        res["decode_attention"].update(_time_decode(
+            q, k, v, ln, kw, f"B={B} T={T} length={length}"))
+    if _hd256_here():
+        # Gemma-2 9B's global layers at the [gemma] dense path's bucket
+        q, k, v, kw = _prefill_case(4, 256, pre4, dev, cap=GEMMA_CAP,
+                                    heads=gemma)
+        res["flash_prefill"]["hd256"] = _time_prefill(
+            q, k, v, kw, f"B=4 Sq=256 T={T} prefix={pre4} cap={GEMMA_CAP} "
+            f"H,K,hd={gemma}")
+        q, k, v, ln, kw = _decode_case(4, lens, dev, cap=GEMMA_CAP,
+                                       heads=gemma)
+        res["decode_attention"]["hd256"] = _time_decode(
+            q, k, v, ln, kw, f"B=4 T={T} length={lens} cap={GEMMA_CAP} "
+            f"H,K,hd={gemma}")
     return res
 
 
@@ -562,20 +644,21 @@ PAGED_PLAIN = {paged_decode_attention: paged_decode_attention_plain,
                chunk_prefill_attention: chunk_prefill_attention_plain}
 
 
-def _pool_and_tables(B, dev, kh=K, hd=HD):
-    """A bf16 (NB, BS, kh, hd) K/V pool pair and (B, T/BS) tables of
-    shuffled physical blocks, rows 0 and 1 sharing their first 4 blocks
-    as a copy-on-write fork would."""
+def _pool_and_tables(B, dev, kh=K, hd=HD, kvdt=torch.bfloat16):
+    """A (NB, BS, kh, hd) K/V pool pair (bf16 as the engines', or kvdt)
+    and (B, T/BS) tables of shuffled physical blocks, rows 0 and 1
+    sharing their first 4 blocks as a copy-on-write fork would."""
     rs = np.random.RandomState(SEED + B)
     kp, vp = [torch.from_numpy(rs.standard_normal((NB, BS, kh, hd)).astype(
-        np.float32)).to(dev, torch.bfloat16) for _ in range(2)]
+        np.float32)).to(dev, kvdt) for _ in range(2)]
     t = rs.permutation(np.arange(1, NB))[:B * (T // BS)].reshape(B, -1)
     if B > 1:
         t[1, :4] = t[0, :4]
     return kp, vp, torch.tensor(t, dtype=torch.int32, device=dev)
 
 
-def _paged_case(fn, B, Sq, pos, dev, qdt=torch.float32, heads=TINY_HEADS):
+def _paged_case(fn, B, Sq, pos, dev, qdt=torch.float32, heads=TINY_HEADS,
+                kvdt=torch.bfloat16):
     """Inputs of one paged kernel call: pos is the per-row length (K3,
     K4) or chunk start (K5)."""
     nh, kh, hd = heads
@@ -583,7 +666,7 @@ def _paged_case(fn, B, Sq, pos, dev, qdt=torch.float32, heads=TINY_HEADS):
     shape = (B, nh, hd) if fn is paged_decode_attention else (B, Sq, nh, hd)
     q = torch.from_numpy(rs.standard_normal(shape).astype(np.float32)).to(
         dev, qdt)
-    kp, vp, t = _pool_and_tables(B, dev, kh, hd)
+    kp, vp, t = _pool_and_tables(B, dev, kh, hd, kvdt)
     return q, kp, vp, t, torch.tensor(pos, dtype=torch.int32, device=dev)
 
 
@@ -594,13 +677,14 @@ def _query_positions(fn, q, pos):
     return first[:, None] + torch.arange(Sq, device=q.device)[None, :]
 
 
-def _paged_work(fn, q, pos):
-    """Bytes (q in, o out, the table-addressed bf16 K/V rows the data
-    needs) and flops (4*hd per query-head/key pair) of one call."""
+def _paged_work(fn, q, pos, kp):
+    """Bytes (q in, o out, the table-addressed K/V rows the data needs) and
+    flops (4*hd per query-head/key pair) of one call."""
+    nh, hd = q.shape[-2:]
     qpos = _query_positions(fn, q, pos)
     rows = int((qpos[:, -1] + 1).sum())
-    nbytes = q.numel() * q.element_size() * 2 + rows * K * HD * 2 * 2
-    flops = 4 * HD * H * int((qpos + 1).sum())
+    nbytes = q.numel() * q.element_size() * 2 + rows * _kv_row_bytes(kp)
+    flops = 4 * hd * nh * int((qpos + 1).sum())
     return nbytes, flops
 
 
@@ -618,41 +702,80 @@ def _sdpa_paged(fn, q, kp, vp, t, pos):
     return _sdpa(qh, kh, vh, mask)
 
 
+def _time_paged(fn, q, kp, vp, t, p, kw, label):
+    """One paged kernel timed beside its plain version and SDPA on the
+    pre-gathered view. Returns the kernel's record."""
+    plain = PAGED_PLAIN[fn]
+    ms = cuda_ms(lambda: fn(q, kp, vp, t, p, **kw))
+    dev_ms = device_ms(lambda: fn(q, kp, vp, t, p, **kw))
+    plain_ms = cuda_ms(lambda: plain(q, kp, vp, t, p, **kw))
+    sdpa = _sdpa_paged(fn, q, kp, vp, t, p)
+    lib, lib_dev = cuda_ms(sdpa), device_ms(sdpa)
+    nbytes, flops = _paged_work(fn, q, p, kp)
+    bound, by = _bound(nbytes, flops)
+    extra, tc = "", {}
+    if fn is chunk_prefill_attention:     # K1's tile kernel
+        tc_bound, tc_by = _bound(nbytes, TILE_PIECES * flops, BF16_TC_FLOPS)
+        extra = (f", tensor-core bound {tc_bound:.4f} ms ({tc_by}, "
+                 f"{TILE_PIECES} bf16 products per fp32 one at 989 "
+                 f"TFLOP/s)")
+        tc = dict(tc_bound_ms=tc_bound)
+    print(f"[kernels] {fn.__name__} {label} pool {NB}x{BS}: kernel {ms:.4f} "
+          f"ms (device {_fmt(dev_ms)}), plain {plain_ms:.4f} ms, sdpa on the "
+          f"pre-gathered view {lib:.4f} ms (device {_fmt(lib_dev)}; gather "
+          f"not timed), bound {bound:.4f} ms ({by}, fp32 at 67 TFLOP/s)"
+          f"{extra}")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib, library_device_ms=lib_dev, **tc)
+
+
 def phase_paged_kernels(dev) -> dict:
     """K3, K4 and K5 against their plain versions, then timed. Returns
     {kernel: {max_abs_err, ms, plain_ms, bound_ms, bound_by,
-    library_ms}} at the representative serve-path shape."""
+    library_ms, ...}} at the representative serve-path shape, with the
+    same at Gemma-2's heads under "hd256"."""
     res = {fn.__name__: {"max_abs_err": 0.0} for fn in PAGED}
+    f32, bf16 = torch.float32, torch.bfloat16
     lengths = [1, 130, 300, 512]
     starts = [0, 37, 100, 200]
     cases = []
     for fn, Sq, pos in ((paged_decode_attention, 1, lengths),
                         (verify_attention, 4, [4] + lengths[1:])):
-        cases += [(fn, 1, Sq, [300], None, None, torch.float32),
-                  (fn, 4, Sq, pos, None, None, torch.float32),
-                  (fn, 4, Sq, pos, 64, 50.0, torch.float32),
-                  (fn, 4, Sq, pos, None, None, torch.bfloat16)]
+        cases += [(fn, 1, Sq, [300], None, None, f32),
+                  (fn, 4, Sq, pos, None, None, f32),
+                  (fn, 4, Sq, pos, 64, 50.0, f32),
+                  (fn, 4, Sq, pos, None, None, bf16)]
     cases.append((verify_attention, 4, 4, [64, 65, 129, 511], None, None,
-                  torch.float32))
+                  f32))
     for Sq in (64, 128):
-        cases += [(chunk_prefill_attention, 1, Sq, [37], None, None,
-                   torch.float32),
-                  (chunk_prefill_attention, 4, Sq, starts, None, None,
-                   torch.float32)]
-    cases += [(chunk_prefill_attention, 4, 128, starts, 100, 50.0,
-               torch.float32),
-              (chunk_prefill_attention, 4, 64, starts, None, None,
-               torch.bfloat16)]
-    cases = [c + (TINY_HEADS,) for c in cases]
+        cases += [(chunk_prefill_attention, 1, Sq, [37], None, None, f32),
+                  (chunk_prefill_attention, 4, Sq, starts, None, None, f32)]
+    cases += [(chunk_prefill_attention, 4, 128, starts, 100, 50.0, f32),
+              (chunk_prefill_attention, 4, 64, starts, None, None, bf16)]
+    cases = [c + (TINY_HEADS, bf16) for c in cases]
     # Qwen1.5-MoE's heads, at the [moe-paged] path's batch bucket
     for fn, Sq, pos in ((paged_decode_attention, 1, lengths),
                         (verify_attention, 4, [4] + lengths[1:]),
                         (verify_attention, 4, [64, 65, 129, 511]),
                         (chunk_prefill_attention, 128, starts),
                         (chunk_prefill_attention, 64, [0, 16, 63, 384])):
-        cases.append((fn, 4, Sq, pos, None, None, torch.float32, QWEN_HEADS))
-    for fn, B, Sq, pos, window, cap, qdt, heads in cases:
-        q, kp, vp, t, p = _paged_case(fn, B, Sq, pos, dev, qdt, heads)
+        cases.append((fn, 4, Sq, pos, None, None, f32, QWEN_HEADS, bf16))
+    if _hd256_here():
+        # Gemma-2 9B's heads at the [gemma-paged] path's batch bucket: cap
+        # 50 on every layer, the local layers' window, a bf16 q, and an
+        # fp32 pool (the CUDA-core body of K5)
+        for fn, Sq, pos in ((paged_decode_attention, 1, lengths),
+                            (verify_attention, 4, [4] + lengths[1:]),
+                            (chunk_prefill_attention, 128, starts)):
+            cases += [(fn, 4, Sq, pos, None, GEMMA_CAP, f32, GEMMA_HEADS,
+                       bf16),
+                      (fn, 4, Sq, pos, 64, GEMMA_CAP, f32, GEMMA_HEADS, bf16),
+                      (fn, 4, Sq, pos, None, GEMMA_CAP, bf16, GEMMA_HEADS,
+                       bf16)]
+        cases.append((chunk_prefill_attention, 4, 128, starts, 64, GEMMA_CAP,
+                      f32, GEMMA_HEADS, f32))
+    for fn, B, Sq, pos, window, cap, qdt, heads, kvdt in cases:
+        q, kp, vp, t, p = _paged_case(fn, B, Sq, pos, dev, qdt, heads, kvdt)
         kw = dict(window=window, cap=cap)
         got = fn(q, kp, vp, t, p, **kw)
         torch.cuda.synchronize()
@@ -660,8 +783,8 @@ def phase_paged_kernels(dev) -> dict:
         err = (got.float() - want.float()).abs().max().item()
         tol = TOL[qdt]
         print(f"[kernels] {fn.__name__} B={B} Sq={Sq} pos={pos} "
-              f"window={window} cap={cap} q={str(qdt)[6:]} H,K,hd={heads}"
-              f": max_abs_err "
+              f"window={window} cap={cap} q={str(qdt)[6:]} "
+              f"kv={str(kvdt)[6:]} H,K,hd={heads}: max_abs_err "
               f"{err:.3e} (tolerance {tol:g})")
         if not (err <= tol):
             raise AssertionError(f"{fn.__name__}: {err} > {tol}")
@@ -677,30 +800,18 @@ def phase_paged_kernels(dev) -> dict:
                         (chunk_prefill_attention, 64, starts),
                         (chunk_prefill_attention, 128, starts)):
         q, kp, vp, t, p = _paged_case(fn, len(pos), Sq, pos, dev)
-        plain = PAGED_PLAIN[fn]
-        ms = cuda_ms(lambda: fn(q, kp, vp, t, p))
-        dev_ms = device_ms(lambda: fn(q, kp, vp, t, p))
-        plain_ms = cuda_ms(lambda: plain(q, kp, vp, t, p))
-        sdpa = _sdpa_paged(fn, q, kp, vp, t, p)
-        lib, lib_dev = cuda_ms(sdpa), device_ms(sdpa)
-        nbytes, flops = _paged_work(fn, q, p)
-        bound, by = _bound(nbytes, flops)
-        extra, tc = "", {}
-        if fn is chunk_prefill_attention:     # K1's tile kernel
-            tc_bound, tc_by = _bound(nbytes, TILE_PIECES * flops,
-                                     BF16_TC_FLOPS)
-            extra = (f", tensor-core bound {tc_bound:.4f} ms ({tc_by}, "
-                     f"{TILE_PIECES} bf16 products per fp32 one at 989 "
-                     f"TFLOP/s)")
-            tc = dict(tc_bound_ms=tc_bound)
-        print(f"[kernels] {fn.__name__} B={len(pos)} Sq={Sq} pos={pos} "
-              f"pool {NB}x{BS}: kernel {ms:.4f} ms (device {_fmt(dev_ms)})"
-              f", plain {plain_ms:.4f} ms, sdpa on the pre-gathered view "
-              f"{lib:.4f} ms (device {_fmt(lib_dev)}; gather not timed), "
-              f"bound {bound:.4f} ms ({by}, fp32 at 67 TFLOP/s){extra}")
-        res[fn.__name__].update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                                bound_ms=bound, bound_by=by, library_ms=lib,
-                                library_device_ms=lib_dev, **tc)
+        res[fn.__name__].update(_time_paged(
+            fn, q, kp, vp, t, p, {}, f"B={len(pos)} Sq={Sq} pos={pos}"))
+    if _hd256_here():
+        for fn, Sq, pos in ((paged_decode_attention, 1, lengths),
+                            (verify_attention, 4, [4] + lengths[1:]),
+                            (chunk_prefill_attention, 128, starts)):
+            q, kp, vp, t, p = _paged_case(fn, 4, Sq, pos, dev,
+                                          heads=GEMMA_HEADS)
+            res[fn.__name__]["hd256"] = _time_paged(
+                fn, q, kp, vp, t, p, dict(cap=GEMMA_CAP),
+                f"B=4 Sq={Sq} pos={pos} cap={GEMMA_CAP} "
+                f"H,K,hd={GEMMA_HEADS}")
     return res
 
 
@@ -708,10 +819,12 @@ def phase_paged_kernels(dev) -> dict:
 # phase 4: 2-layer TinyLlama-1.1B, card against CPU
 
 def two_layer(name):
-    """``name`` at full width, its first stage's pattern twice."""
+    """``name`` at full width, 2 layers: its first stage's pattern twice, or
+    once where it has two layers (Gemma-2's local and global pair)."""
     cfg = get_config(name)
+    pattern = cfg.stages[0].pattern
     return dataclasses.replace(cfg, name=name + "-2l", stages=(
-        Stage(pattern=cfg.stages[0].pattern, repeat=2),))
+        Stage(pattern=pattern, repeat=max(1, 2 // len(pattern))),))
 
 
 SCHED = [(0, 100), (100, 140)] + [(140 + i, 141 + i) for i in range(8)]
@@ -988,11 +1101,13 @@ def _check_answers(ctxs) -> list:
 
 
 def _layers(engines) -> int:
-    core = replicas_of(engines["core_llm"])[0]
-    return sum(st.repeat for st in core.cfg.stages)
+    return replicas_of(engines["core_llm"])[0].cfg.num_layers
 
 
-def _print_window(tag, warm, wall, ctxs, dec, busy, launches, card):
+def _print_window(tag, warm, wall, ctxs, dec, busy, launches, card,
+                  optional=()):
+    """The window's lines; fails if a kernel of ``launches`` not named in
+    ``optional`` was launched no time."""
     nq = 1 + len(QUESTIONS)
     print(f"[{tag}] warm-up query {warm:.3f} s [{card}]")
     for c in ctxs:
@@ -1008,7 +1123,7 @@ def _print_window(tag, warm, wall, ctxs, dec, busy, launches, card):
           + ", ".join(f"{k} {n} ({n / nq:.1f} per query)"
                       for k, n in launches.items()))
     for name, n in launches.items():
-        if n <= 0:
+        if n <= 0 and name not in optional:
             raise AssertionError(f"{name} was not launched on the {tag} "
                                  f"path")
 
@@ -1056,9 +1171,14 @@ def phase_serve(dev, card: str, model="tinyllama-1.1b",
 
 
 def phase_serve_paged(dev, card: str, dense_answers,
-                      model="tinyllama-1.1b", tag="paged"):
+                      model="tinyllama-1.1b", tag="paged", after=None,
+                      optional=()):
     """The paged path: paged KV + radix cache, chunked prefill, k=3
-    prompt-lookup speculation, continuous batching. Returns launches."""
+    prompt-lookup speculation, continuous batching. ``after(core,
+    answers)`` runs at the end, the runtime shut down and the engine's
+    weights still on the card. A kernel named in ``optional`` may go
+    unlaunched in the window (K4 runs only where speculation finds no
+    draft). Returns launches."""
     torch.cuda.reset_peak_memory_stats()
     opts = dict(paged_kv=True, chunked_prefill=True, prefill_chunk=128,
                 prefix_cache="radix")
@@ -1104,7 +1224,8 @@ def phase_serve_paged(dev, card: str, dense_answers,
           f"fp32 weights, paged KV {core.num_blocks}x{core.block_size} + "
           f"radix cache, chunked "
           f"prefill 128, prompt-lookup speculation k=3, continuous batching")
-    _print_window(tag, warm, wall, ctxs, dec, busy, launches, card)
+    _print_window(tag, warm, wall, ctxs, dec, busy, launches, card,
+                  optional)
     acc = spec["tokens_emitted"] / max(1, spec["seq_steps"])
     print(f"[{tag}] radix: {radix['hit_tokens']} prefill tokens served from "
           f"cache ({radix['hits']} hits, {radix['misses']} misses); "
@@ -1120,6 +1241,8 @@ def phase_serve_paged(dev, card: str, dense_answers,
           f"and the window's) equal the dense path's token for token "
           f"(printed only: the paths batch tokens in other groupings and "
           f"the kernels sum in other orders)")
+    if after is not None:
+        after(core, answers)
     return launches
 
 
@@ -1296,7 +1419,7 @@ def phase_rwkv_model(dev):
 ARCHS = [("qwen2-moe-a2.7b", True), ("deepseek-v3-671b", True),
          ("hymba-1.5b", False), ("chatglm3-6b", False),
          ("deepseek-67b", False), ("musicgen-medium", False),
-         ("internvl2-26b", False)]
+         ("internvl2-26b", False), ("gemma2-9b", True)]
 # a top-k choice that differs between the card and the CPU must come from
 # a near-tie: float32 sums in another order move a probability by ~1e-7
 FLIP_GAP = 1e-5
@@ -1365,7 +1488,10 @@ def phase_archs(dev, card: str):
         toks = rs.standard_normal((152, cfg.d_model)).astype(np.float32) \
             if cfg.embed_stub else rs.randint(0, cfg.vocab_size, 152)
         spec = cfg.stages[0].pattern[0]
-        gqa_linear = cfg.attention_kind == "gqa" and spec.window is None
+        # a layer whose attention is GQA over a linear cache (Gemma-2's
+        # global layers; its local ones keep a ring, plain attention)
+        gqa_linear = cfg.attention_kind == "gqa" and any(
+            sp.window is None for sp in cfg.stages[0].pattern)
         layers = cfg.num_layers if cfg.moe is not None and spec.moe else 0
         forms = [False, True] if paged else [False]
         for form in forms:
@@ -1480,7 +1606,7 @@ def _time_dispatch(card: str):
     return timed
 
 
-def _paged_vs_dense(card: str):
+def _paged_vs_dense(card: str, tag: str = "moe"):
     """The engine's whole model, on its own weights, on a dense cache and on
     a paged pool read through a shuffled table, fed the same fixed tokens
     (run_model's schedule and a verify chunk at the end). Each form first
@@ -1490,7 +1616,8 @@ def _paged_vs_dense(card: str):
     dense form's routing and is held against it at every row within
     MODEL_TOL of the logits' scale: a fault of the paged path at depth
     shows there, and the answers of the two serve paths, which differ
-    (printed by the paged phase), are read against this."""
+    (printed by the paged phase), are read against this. A model without
+    MoE has one routing: its paged form is run once."""
     def check(core):
         cfg, dev, L = core.cfg, core.device, core.cfg.num_layers
         toks = np.random.RandomState(SEED).randint(0, cfg.vocab_size, 152)
@@ -1501,8 +1628,10 @@ def _paged_vs_dense(card: str):
             dense, _ = run()
         with _routing() as paged_calls:
             own, _ = run(paged=True)
-        with _routing(dense_calls):
-            paged, _ = run(paged=True)
+        paged = own
+        if cfg.moe is not None:
+            with _routing(dense_calls):
+                paged, _ = run(paged=True)
         torch.cuda.synchronize()
         flips = _flips(dense_calls, paged_calls, sched, L)
         first = min(flips, default=None, key=lambda f: (f[0], f[1]))
@@ -1516,17 +1645,24 @@ def _paged_vs_dense(card: str):
         finite = all(torch.isfinite(o).all().item() for o in paged + own)
         where = (f"position {first[0]}, layer {first[1]} (probability gap "
                  f"{first[4]:.3e})" if first else "no row")
-        print(f"[moe] depth check, {L} layers, 152 positions: on their own "
-              f"routings the dense and paged forms first choose other "
-              f"experts at {where}, {len(flips)} (row, layer) choices "
-              f"differ in all; greedy tokens agree at {sum(agree[:cut])} of "
-              f"{cut} rows before that and {sum(agree[cut:])} of "
-              f"{len(agree) - cut} from there (median top-1 margin "
-              f"{margin:.3f} over |logits| <= {scale:.3f}) [{card}]")
-        print(f"[moe] depth check, the paged form replaying the dense "
-              f"form's routing: max |dlogits| {err:.3e} at every row over "
-              f"|logits| <= {scale:.3f} (tolerance {MODEL_TOL:g} x "
-              f"{scale:.3f}) [{card}]")
+        if cfg.moe is not None:
+            print(f"[{tag}] depth check, {L} layers, 152 positions: on their"
+                  f" own routings the dense and paged forms first choose "
+                  f"other experts at {where}, {len(flips)} (row, layer) "
+                  f"choices differ in all; greedy tokens agree at "
+                  f"{sum(agree[:cut])} of {cut} rows before that and "
+                  f"{sum(agree[cut:])} of {len(agree) - cut} from there "
+                  f"(median top-1 margin {margin:.3f} over |logits| <= "
+                  f"{scale:.3f}) [{card}]")
+        else:
+            print(f"[{tag}] depth check, {L} layers, 152 positions: greedy "
+                  f"tokens of the dense and paged forms agree at "
+                  f"{sum(agree)} of {len(agree)} rows (median top-1 margin "
+                  f"{margin:.3f} over |logits| <= {scale:.3f}) [{card}]")
+        how = " replaying the dense form's routing" if cfg.moe else ""
+        print(f"[{tag}] depth check, the paged form{how}: max |dlogits| "
+              f"{err:.3e} at every row over |logits| <= {scale:.3f} "
+              f"(tolerance {MODEL_TOL:g} x {scale:.3f}) [{card}]")
         if not finite or not err <= MODEL_TOL * scale:
             raise AssertionError(f"paged vs dense at depth: err {err}, "
                                  f"scale {scale}, finite {finite}")
@@ -1622,7 +1758,7 @@ def _core_prompts():
         LLMEngine.op_prefill, LLMEngine.submit_prefill = orig
 
 
-def _compare_prompts(dense, paged, card: str):
+def _compare_prompts(dense, paged, card: str, tag: str = "moe-paged"):
     """Prints how the core LLM's prompts on the two paths compare, as
     multisets: naive-RAG asks for one candidate answer per retrieved
     context, then combines the candidates in one more prompt, so a
@@ -1639,7 +1775,7 @@ def _compare_prompts(dense, paged, card: str):
             a == b for a, b in zip(u.split(), t.split())), default="")
         pairs = list(zip(near.split(), t.split()))
         words.append(f"{sum(a != b for a, b in pairs)} of {len(pairs)}")
-    print(f"[moe-paged] core LLM prompts: {len(paged) - len(rest)} of "
+    print(f"[{tag}] core LLM prompts: {len(paged) - len(rest)} of "
           f"{len(paged)} equal to the dense path's; the {len(rest)} others "
           f"begin " + ", ".join(sorted({repr(' '.join(t.split()[:2]))
                                         for t in rest}))
@@ -1655,15 +1791,285 @@ def phase_moe(dev, card: str) -> dict:
     out = {}
     _assert_empty_card("moe")
     checks = (_time_dispatch(card), _paged_vs_dense(card), _grouping(card))
-    with _core_prompts() as dense_prompts:
+    with _core_prompts() as dense_prompts, \
+            _core_generations() as dense_gens:
         out["dense"], answers = phase_serve(
             dev, card, QWEN, (flash_prefill, decode_attention), "moe",
             lambda core: [check(core) for check in checks])
     _assert_empty_card("moe-paged")
-    with _core_prompts() as paged_prompts:
-        out["paged"] = phase_serve_paged(dev, card, answers, QWEN,
-                                         "moe-paged")
+    with _core_prompts() as paged_prompts, \
+            _core_generations() as paged_gens:
+        out["paged"] = phase_serve_paged(
+            dev, card, answers, QWEN, "moe-paged",
+            _trace_parting(card, "moe-paged", answers, dense_gens,
+                           paged_gens))
     _compare_prompts(dense_prompts, paged_prompts, card)
+    return out
+
+
+@contextlib.contextmanager
+def _core_generations():
+    """While open, every generation of the core LLM as (context token ids,
+    generated token ids, text), in the order the generations end: the
+    context is what the sequence's prefills wrote (a forked prefix, a
+    partial prefill and its continuation) and the token its prefill
+    chose, the ids what greedy decoding emitted after that token
+    (monolithic op_decode or the continuous loop), the text what the
+    engine returned for them."""
+    gens, ctx, lock = [], {}, threading.Lock()
+    orig = (LLMEngine._prepare_prefill_task, LLMEngine.decode_batch,
+            LLMEngine.op_decode, LLMEngine.submit_decode)
+    outs = threading.local()
+
+    def prepare(self, t):
+        fresh = t["sid"] not in self.states
+        st, out, ptoks = orig[0](self, t)
+        if self.name == "core_llm":
+            with lock:
+                prev = [] if fresh else ctx.get(t["sid"], [])
+                ctx[t["sid"]] = prev + list(ptoks) + list(out)
+        return st, out, ptoks
+
+    def decode_batch(self, items, on_chunk=None):
+        outs.ids = orig[1](self, items, on_chunk)
+        return outs.ids
+
+    def fed(self, sid):
+        """The context and the token the prefill chose, which the decode
+        feeds first (its ids are the tokens after it)."""
+        with lock:
+            return ctx.get(sid, []) + [int(self.states[sid].last_token)]
+
+    def op_decode(self, task_batch, on_chunk=None):
+        first = [fed(self, t["sid"]) for t in task_batch]
+        texts = orig[2](self, task_batch, on_chunk)
+        if self.name == "core_llm":
+            with lock:
+                for c, ids, text in zip(first, outs.ids, texts):
+                    gens.append((c, [int(i) for i in ids], text))
+        return texts
+
+    def submit_decode(self, sid, max_new, on_text=None, on_done=None,
+                      slo=None):
+        first = fed(self, sid)
+
+        def done(seq):
+            if self.name == "core_llm":
+                with lock:
+                    gens.append((first, [int(i) for i in seq.tokens],
+                                 seq.result))
+            if on_done is not None:
+                on_done(seq)
+        return orig[3](self, sid, max_new, on_text, done, slo)
+    (LLMEngine._prepare_prefill_task, LLMEngine.decode_batch,
+     LLMEngine.op_decode, LLMEngine.submit_decode) = (
+        prepare, decode_batch, op_decode, submit_decode)
+    try:
+        yield gens
+    finally:
+        (LLMEngine._prepare_prefill_task, LLMEngine.decode_batch,
+         LLMEngine.op_decode, LLMEngine.submit_decode) = orig
+
+
+def _last_row(core, toks, paged):
+    """The whole model's logits at the last of ``toks`` (one prefill on a
+    dense cache, or on a paged pool through a shuffled table), and each
+    MoE router call's probability gap between its k-th and (k+1)-th
+    expert at that row."""
+    cfg, dev = core.cfg, core.device
+    x = torch.as_tensor(np.asarray(toks)[None], device=dev)
+    kw = {}
+    if paged:
+        cache = kvc.init_paged_pool(cfg, 1 + T // BS, BS, device=dev)
+        table = np.random.RandomState(SEED).permutation(
+            np.arange(1, 1 + T // BS))[None]
+        kw["block_tables"] = torch.tensor(table, dtype=torch.int32,
+                                          device=dev)
+    else:
+        cache = kvc.init_cache(cfg, 1, T, device=dev)
+    with _routing() as calls, torch.inference_mode():
+        logits, _ = apply_model(cfg, core.params, x, cache, 0, **kw)
+    gaps = [float(t[-1, 0] - t[-1, 1]) for _, t in calls]
+    return logits[0, -1].float().cpu(), gaps, [set(i[-1].tolist())
+                                               for i, _ in calls]
+
+
+def _trace_parting(card: str, tag: str, dense_answers, dense_gens,
+                   paged_gens):
+    """After the paged path: the first answer that differs between the
+    dense and the paged path, traced through the core LLM's generations
+    whose context both paths wrote alike. Printed: how many of those emit
+    other token ids, and how many emit the same ids as other text (each
+    engine's HashTokenizer decodes an id to the first word it encoded
+    with that id, so its text follows the order of its encodes); for the
+    first of each, where it parts. For the first that parts in its ids,
+    the context plus the common tokens is replayed through the whole
+    model (batch 1) on a dense cache and on a paged pool: the top-2 logit
+    gap at that token on each form and, for an MoE model, the smallest
+    top-k gate gap over the layers there. A parting in the ids is read as
+    a fault only where that gate gap is not a near-tie (FLIP_GAP); it is
+    printed either way."""
+    def trace(core, paged_answers):
+        first = next((i for i, (a, b) in enumerate(zip(dense_answers,
+                                                       paged_answers))
+                      if a != b), None)
+        if first is None:
+            print(f"[{tag}] parting: all {len(paged_answers)} answers equal "
+                  f"the dense path's [{card}]")
+            return
+        dense = {}
+        for c, ids, text in dense_gens:
+            dense.setdefault(tuple(c), (ids, text))
+        shared, by_ids, by_text = 0, [], []
+        for c, ids, text in paged_gens:
+            other = dense.get(tuple(c))
+            if other is None:
+                continue
+            shared += 1
+            if other[0] != ids:
+                by_ids.append((list(c), other[0], ids))
+            elif other[1] != text:
+                by_text.append((ids, other[1], text))
+        print(f"[{tag}] parting: answer {first} is the first of "
+              f"{len(paged_answers)} to differ from the dense path's; of "
+              f"{len(paged_gens)} core-LLM generations on this path, "
+              f"{shared} have a context the dense path also wrote: "
+              f"{len(by_ids)} of those emit other token ids, "
+              f"{len(by_text)} the same ids as other text [{card}]")
+        if by_text:
+            ids, d_text, p_text = by_text[0]
+            pairs = list(zip(d_text.split(), p_text.split()))
+            w = next((n for n, (a, b) in enumerate(pairs) if a != b), None)
+            if w is not None:
+                print(f"[{tag}] parting: the first generation of the same "
+                      f"{len(ids)} ids as other text reads word {w} as "
+                      f"{pairs[w][0]!r} on the dense path and "
+                      f"{pairs[w][1]!r} on the paged path [{card}]")
+        if not by_ids:
+            return
+        c, d_ids, p_ids = by_ids[0]
+        j = next((n for n, (a, b) in enumerate(zip(d_ids, p_ids)) if a != b),
+                 None)
+        if j is None:
+            print(f"[{tag}] parting: the first generation that parts in its"
+                  f" ids agrees on its first {min(len(d_ids), len(p_ids))} "
+                  f"and differs in length ({len(d_ids)} dense, "
+                  f"{len(p_ids)} paged) [{card}]")
+            return
+        toks = (c + d_ids[:j])[-T:]
+        rows = {}
+        for form in (False, True):
+            logits, gaps, sets = _last_row(core, toks, form)
+            top = torch.topk(logits, 2)
+            rows[form] = (int(top.indices[0]), float(top.values[0]
+                                                     - top.values[1]),
+                          gaps, sets)
+        print(f"[{tag}] parting: the first generation that parts in its "
+              f"ids ({len(c)}-token context) diverges at generated token "
+              f"{j}: dense path {d_ids[j]}, paged path {p_ids[j]}; replayed "
+              f"at batch 1: dense form argmax {rows[False][0]} with top-2 "
+              f"logit gap {rows[False][1]:.3e}, paged form argmax "
+              f"{rows[True][0]} with top-2 logit gap {rows[True][1]:.3e} "
+              f"[{card}]")
+        gaps = rows[False][2] + rows[True][2]
+        if gaps:
+            low = min(gaps)
+            tie = "a near-tie" if low < FLIP_GAP else "not a near-tie"
+            same = rows[False][3] == rows[True][3]
+            print(f"[{tag}] parting: top-k gate gap at that token, "
+                  f"smallest over {len(rows[False][2])} layers and both "
+                  f"forms {low:.3e} ({tie}, FLIP_GAP {FLIP_GAP:g}); the "
+                  f"two forms choose {'the same' if same else 'other'} "
+                  f"experts there [{card}]")
+    return trace
+
+
+@contextlib.contextmanager
+def _head_dims():
+    """While open, the attention kernel calls the model makes, counted by
+    (kernel, head dim): the model's references to the five wrappers are
+    wrapped."""
+    from repro_torch.models import attention
+    names = ("flash_prefill", "decode_attention", "paged_decode_attention",
+             "verify_attention", "chunk_prefill_attention")
+    orig = {n: getattr(attention, n) for n in names}
+    counts, lock = {}, threading.Lock()
+
+    def wrap(name, fn):
+        def counted(q, *args, **kw):
+            with lock:
+                key = (name, q.shape[-1])
+                counts[key] = counts.get(key, 0) + 1
+            return fn(q, *args, **kw)
+        return counted
+    for n, fn in orig.items():
+        setattr(attention, n, wrap(n, fn))
+    try:
+        yield counts
+    finally:
+        for n, fn in orig.items():
+            setattr(attention, n, fn)
+
+
+def _check_head_dim(tag: str, counts, kernels, hd: int):
+    """Every kernel of ``kernels`` launched at head dim ``hd``."""
+    print(f"[{tag}] attention kernel calls by head dim: " + ", ".join(
+        f"{k} hd {h}: {n}" for (k, h), n in sorted(counts.items())))
+    missing = [fn.__name__ for fn in kernels
+               if counts.get((fn.__name__, hd), 0) <= 0]
+    if missing:
+        raise AssertionError(f"{tag}: {missing} not launched at hd {hd}")
+
+
+GEMMA = "gemma2-9b"
+
+
+def _model_size(card: str, tag: str):
+    def show(core):
+        n = sum(p.numel() for p in tree_leaves(core.params))
+        nbytes = sum(p.numel() * p.element_size()
+                     for p in tree_leaves(core.params))
+        print(f"[{tag}] core_llm {core.cfg.name}: {n} parameters, "
+              f"{nbytes / 2**30:.2f} GiB of fp32 weights drawn on the card "
+              f"from seed {SEED}; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"[{card}]")
+    return show
+
+
+def phase_gemma(dev, card: str) -> dict:
+    """Naive-RAG under Teola with the whole 42-layer Gemma-2 9B (hd 256,
+    logit softcap 50, local 4096-token windows on every other layer) as
+    the core LLM: the dense path (K1 and K2 on the 21 global layers; the
+    local layers keep a ring, plain masked attention, as in the
+    reference), then, that engine freed, the paged path (K5, K3 and K4 on
+    every layer, window and cap passed; K4 runs in the window only where
+    speculation finds no draft, and in the depth check's decode steps).
+    Never two Gemma engines at once. Every attention call at hd 256; the
+    whole model's paged form held to its dense form; the first parting
+    answer traced. Returns the launches per path."""
+    out = {}
+    _assert_empty_card("gemma")
+    with _core_prompts() as dense_prompts, \
+            _core_generations() as dense_gens, _head_dims() as dense_hd:
+        out["dense"], answers = phase_serve(
+            dev, card, GEMMA, DENSE, "gemma", _model_size(card, "gemma"))
+    _check_head_dim("gemma", dense_hd, DENSE, 256)
+    _assert_empty_card("gemma-paged")
+    # the paged engine's weights are the dense engine's (one seed): the
+    # depth check runs both forms on them, K4 among them (8 decode steps)
+    with _core_prompts() as paged_prompts, \
+            _core_generations() as paged_gens, _head_dims() as paged_hd:
+        out["paged"] = phase_serve_paged(
+            dev, card, answers, GEMMA, "gemma-paged",
+            lambda core, paged_answers: [
+                _model_size(card, "gemma-paged")(core),
+                _trace_parting(card, "gemma-paged", answers, dense_gens,
+                               paged_gens)(core, paged_answers),
+                _paged_vs_dense(card, "gemma-paged")(core)],
+            optional=("paged_decode_attention",))
+    _check_head_dim("gemma-paged", paged_hd, PAGED, 256)
+    _compare_prompts(dense_prompts, paged_prompts, card, "gemma-paged")
     return out
 
 
@@ -2542,6 +2948,47 @@ def _free():
     torch.cuda.empty_cache()
 
 
+def phase_examples(card: str):
+    """The port's examples (repro_torch/examples/), each once on the card
+    in this process: quickstart and serve_batched must print what
+    tests/test_examples.py holds the reference's to, colocated_apps must
+    answer every query of both apps. Their engines are the repo's tiny
+    ones."""
+    import io
+    from repro_torch.examples import colocated_apps, quickstart
+    from repro_torch.examples import serve_batched
+    runs = (("quickstart", lambda: quickstart.main(device="cuda"),
+             ("optimized e-graph", "end-to-end latency")),
+            ("serve_batched", lambda: serve_batched.main(3, device="cuda"),
+             ("served 3 queries", "topology-aware batching")),
+            ("colocated_apps", lambda: colocated_apps.main(device="cuda"),
+             ("avg latency",)))
+    for name, run, want in runs:
+        n0 = {fn.__name__: fn.launches for fn in DENSE}
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            ret = run()
+        torch.cuda.synchronize()
+        text = buf.getvalue()
+        n = {fn.__name__: fn.launches - n0[fn.__name__] for fn in DENSE}
+        lines = [ln for ln in text.splitlines() if any(w in ln for w in want)]
+        print(f"[examples] python -m repro_torch.examples.{name}: "
+              f"{time.time() - t0:.1f} s, launches " + ", ".join(
+                  f"{k} {v}" for k, v in n.items()) + f" [{card}]")
+        for ln in lines:
+            print(f"[examples]   {ln.strip()}")
+        missing = [w for w in want if w not in text]
+        if missing:
+            raise AssertionError(f"examples {name}: {missing} not printed")
+        if name == "colocated_apps":
+            bad = {app: texts for app, texts in ret.items()
+                   if len(texts) != 3 or not all(
+                       isinstance(t, str) and t for t in texts)}
+            if sorted(ret) != ["rag", "search_gen"] or bad:
+                raise AssertionError(f"colocated_apps answers: {ret}")
+
+
 def phase_exit(card: str):
     """The serve entry point in a process of its own on the card (its
     tiny engines): one query, shutdown, and a clean interpreter exit."""
@@ -2603,10 +3050,12 @@ def main() -> int:
     timed("archs", phase_archs, dev, card)
     timed("moe", phase_moe, dev, card)
     timed("hybrid", phase_hybrid, dev, card)
+    timed("gemma", phase_gemma, dev, card)
     kres["rwkv6_scan_bwd"], k6_bwd = timed("train", phase_train, dev, card)
     launches["rwkv6_scan_bwd"] = k6_bwd
     timed("apps", phase_apps, dev, card)
     timed("layers", phase_layers, dev, card)
+    timed("examples", phase_examples, card)
     timed("exit", phase_exit, card)
     paged_src = "src/repro_torch/csrc/paged_attention.cu"
     sources = {"flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
@@ -2638,8 +3087,9 @@ def main() -> int:
                         "library_ms": r["library_ms"],
                         "device_ms": r["device_ms"],
                         "library_device_ms": r["library_device_ms"]})
-        for extra in ("tc_bound_ms", "needed_bound_ms", "cold_device_ms",
-                      "fwd_save_device_ms", "with_saves_bound_ms"):
+        for extra in ("hd256", "tc_bound_ms", "needed_bound_ms",
+                      "cold_device_ms", "fwd_save_device_ms",
+                      "with_saves_bound_ms"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))

@@ -23,7 +23,8 @@
 // flash_tile_kernel, over the block table (ChunkPagedKeys), with base =
 // start and the key limit maxblk * bs:
 //  - GQA packing: one CTA per (128 / G chunk positions x G heads = 128
-//    rows, kv head, sequence); each K/V tile is read once for the group.
+//    rows, 64 at hd 256; kv head, sequence); each K/V tile is read once
+//    for the group.
 //  - K/V tiles of 64 logical keys, each key's row looked up through the
 //    table and copied by 16-byte cp.async into a two-stage ring; the walk
 //    runs from the window's first tile up to the CTA's causal limit

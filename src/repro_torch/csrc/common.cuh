@@ -37,30 +37,28 @@ __device__ __forceinline__ float score(float dot, float scale, float cap) {
 #define TEOLA_F32 0
 #define TEOLA_BF16 1
 
-// Instantiate LAUNCH<HD, TQ, TKV>(...) for hd in {64, 128}, q in
+// Instantiate LAUNCH<HD, TQ, TKV>(...) for hd in {64, 128, 256}, q in
 // {float32, bfloat16}, k/v in {float32, bfloat16}; unsupported
 // combinations return cudaErrorInvalidValue.
+#define TEOLA_DISPATCH_TYPES(HD, qd, kvd, LAUNCH, ...)                      \
+  do {                                                                      \
+    if (qd == TEOLA_F32 && kvd == TEOLA_BF16)                               \
+      return LAUNCH<HD, float, __nv_bfloat16>(__VA_ARGS__);                 \
+    if (qd == TEOLA_BF16 && kvd == TEOLA_BF16)                              \
+      return LAUNCH<HD, __nv_bfloat16, __nv_bfloat16>(__VA_ARGS__);         \
+    if (qd == TEOLA_F32 && kvd == TEOLA_F32)                                \
+      return LAUNCH<HD, float, float>(__VA_ARGS__);                         \
+    if (qd == TEOLA_BF16 && kvd == TEOLA_F32)                               \
+      return LAUNCH<HD, __nv_bfloat16, float>(__VA_ARGS__);                 \
+  } while (0)
 #define TEOLA_DISPATCH(hd, qd, kvd, LAUNCH, ...)                            \
   do {                                                                      \
-    if (hd == 64) {                                                         \
-      if (qd == TEOLA_F32 && kvd == TEOLA_BF16)                             \
-        return LAUNCH<64, float, __nv_bfloat16>(__VA_ARGS__);               \
-      if (qd == TEOLA_BF16 && kvd == TEOLA_BF16)                            \
-        return LAUNCH<64, __nv_bfloat16, __nv_bfloat16>(__VA_ARGS__);       \
-      if (qd == TEOLA_F32 && kvd == TEOLA_F32)                              \
-        return LAUNCH<64, float, float>(__VA_ARGS__);                       \
-      if (qd == TEOLA_BF16 && kvd == TEOLA_F32)                             \
-        return LAUNCH<64, __nv_bfloat16, float>(__VA_ARGS__);               \
-    } else if (hd == 128) {                                                 \
-      if (qd == TEOLA_F32 && kvd == TEOLA_BF16)                             \
-        return LAUNCH<128, float, __nv_bfloat16>(__VA_ARGS__);              \
-      if (qd == TEOLA_BF16 && kvd == TEOLA_BF16)                            \
-        return LAUNCH<128, __nv_bfloat16, __nv_bfloat16>(__VA_ARGS__);      \
-      if (qd == TEOLA_F32 && kvd == TEOLA_F32)                              \
-        return LAUNCH<128, float, float>(__VA_ARGS__);                      \
-      if (qd == TEOLA_BF16 && kvd == TEOLA_F32)                             \
-        return LAUNCH<128, __nv_bfloat16, float>(__VA_ARGS__);              \
-    }                                                                       \
+    if (hd == 64)                                                           \
+      TEOLA_DISPATCH_TYPES(64, qd, kvd, LAUNCH, __VA_ARGS__);               \
+    else if (hd == 128)                                                     \
+      TEOLA_DISPATCH_TYPES(128, qd, kvd, LAUNCH, __VA_ARGS__);              \
+    else if (hd == 256)                                                     \
+      TEOLA_DISPATCH_TYPES(256, qd, kvd, LAUNCH, __VA_ARGS__);              \
     return (int)cudaErrorInvalidValue;                                      \
   } while (0)
 

@@ -20,10 +20,12 @@
 // prefix and the key limit min(T, total[b]); K5 runs the same kernel over
 // the block table.
 //  - GQA packing: one CTA per (tile of BQ query positions, kv head,
-//    sequence), its 128 rows the (position, head-in-group) pairs, position
-//    major: BQ = 128 / G positions (16 at TinyLlama's G = 8). Each K/V tile
-//    is read once for all G heads of its group. A G that does not divide
-//    128 pads rows; G > 128 takes ceil(G / 128) CTAs per kv head.
+//    sequence), its 128 rows (64 at hd 256, for shared memory) the
+//    (position, head-in-group) pairs, position major: BQ = 128 / G
+//    positions (16 at TinyLlama's G = 8; 64 / 2 = 32 at Gemma-2's hd 256).
+//    Each K/V tile is read once for all G heads of its group. A G that
+//    does not divide the rows pads them; a larger G takes more CTAs per kv
+//    head.
 //  - K/V tiles of 64 keys in bf16, copied by 16-byte cp.async into a ring
 //    of two stages in shared memory, 128-byte swizzled; the next tile's
 //    copies fly while this tile computes. The CTA walks tiles from the

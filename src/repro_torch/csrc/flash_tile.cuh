@@ -1,22 +1,31 @@
 // Tile core of the port's tensor-core flash attention, for Hopper (sm_90a):
-// the pieces of a kernel that walks 64-key K/V tiles for 128 packed query
-// rows, and that kernel, flash_tile_kernel, one template over the key
+// the pieces of a kernel that walks 64-key K/V tiles for 64 or 128 packed
+// query rows, and that kernel, flash_tile_kernel, one template over the key
 // addressing (common.cuh). K1 flash_prefill (flash_prefill.cu) runs it over
 // the dense cache (DenseKeys), K5 chunk_prefill_attention (chunk_prefill.cu)
 // over the block table of the paged pool (ChunkPagedKeys).
 //
-// Rows. A CTA holds ROWS = 128 query rows, two warpgroups of 64, warp w
-// rows 16w..16w+15. Each thread holds two of its warp's rows, r0 = lane/4
-// and r1 = r0 + 8, in wgmma's m64nN accumulator layout: element 4*nb + e
-// of an accumulator is row r0 (e < 2) or r1 (e >= 2), column 8*nb +
-// 2*(lane%4) + e%2.
+// Rows. A CTA holds rows<HD>() query rows, a warpgroup per 64 and a warp
+// per 16: 128 rows (two warpgroups, 256 threads) at hd 64 and 128, 64 rows
+// (one warpgroup, 128 threads) at hd 256, where three fp32 pieces of 128
+// query rows (192 KB) would not fit beside the K/V ring (128 KB) in the
+// 227 KB a CTA can have. Warp w holds rows 16w..16w+15. Each thread holds
+// two of its warp's rows, r0 = lane/4 and r1 = r0 + 8, in wgmma's m64nN
+// accumulator layout: element 4*nb + e of an accumulator is row r0 (e < 2)
+// or r1 (e >= 2), column 8*nb + 2*(lane%4) + e%2. At hd 256 the output
+// accumulator is 128 floats a thread beside the S tile's 32, with no
+// second warpgroup to share them (a split of the output columns over two
+// warpgroups would compute S twice, or pass P through 24 KB of shared
+// memory there is not). So P's bf16 pieces are formed one at a time
+// (pv_tile_lean: 16 registers, not 48) and the operand descriptors are
+// formed where they are used, to stay within the 255 a thread can have.
 //
 // Shared memory, all in wgmma's 128-byte-swizzle layout (hd/64 column
 // blocks of R rows x 128 B, 16-byte chunk i of row c at chunk (i ^ c) % 8
-// of its row; 1024-byte aligned): Q's pieces (R = 128, written once), then
-// a ring of STAGES stages, each a K tile and a V tile (R = 64 keys). K and
-// V arrive by 16-byte cp.async in their storage type (bf16); keys at or
-// past the caller's limit are zero-filled, never read.
+// of its row; 1024-byte aligned): Q's pieces (R = rows<HD>(), written
+// once), then a ring of STAGES stages, each a K tile and a V tile (R = 64
+// keys). K and V arrive by 16-byte cp.async in their storage type (bf16);
+// keys at or past the caller's limit are zero-filled, never read.
 //
 // Products, both on the tensor cores (wgmma.mma_async m64nNk16, bf16
 // operands, fp32 accumulation):
@@ -55,10 +64,18 @@ namespace teola {
 namespace ft {
 
 constexpr int BK = 64;      // keys per K/V tile
-constexpr int ROWS = 128;   // query rows per CTA: two warpgroups of 64
-constexpr int NT = 256;     // threads per CTA: 8 warps of 16 rows
 constexpr int STAGES = 2;   // K/V tiles in flight (a ring)
 constexpr int NP = 3;       // bf16 pieces of an fp32 operand
+
+// query rows per CTA (a warpgroup per 64), and threads (a warp per 16)
+template <int HD>
+__host__ __device__ constexpr int rows() {
+  return HD <= 128 ? 128 : 64;
+}
+template <int HD>
+__host__ __device__ constexpr int threads() {
+  return 2 * rows<HD>();
+}
 
 // bytes of one K or V tile, of one Q piece, and of one stage (K, V)
 template <int HD>
@@ -67,18 +84,20 @@ __host__ __device__ constexpr int tile_bytes() {
 }
 template <int HD>
 __host__ __device__ constexpr int q_bytes() {
-  return ROWS * HD * 2;
+  return rows<HD>() * HD * 2;
 }
 template <int HD>
 __host__ __device__ constexpr int stage_bytes() {
   return 2 * tile_bytes<HD>();
 }
 // dynamic shared memory of a kernel with NQ pieces of Q, plus slack to
-// align it to 1024 bytes
+// align it to 1024 bytes: at hd 256 and an fp32 q, 1024 + 3 x 32 KB + 2 x
+// 64 KB = 230,400 of the 232,448 bytes a CTA can have
 template <int HD, int NQ>
 __host__ __device__ constexpr size_t smem_bytes() {
   return 1024 + (size_t)NQ * q_bytes<HD>() + STAGES * stage_bytes<HD>();
 }
+static_assert(smem_bytes<256, NP>() <= 232448, "hd 256 tile over 227 KB");
 
 // Byte offset of 16-byte chunk i (dims 8i..8i+7) of row c in a buffer of
 // R rows.
@@ -101,6 +120,7 @@ __device__ __forceinline__ void load_tile(unsigned char* dst,
                                           const Keys& keys, int b, int kvh,
                                           int K, int j0, int hi, int tid) {
   constexpr int CPR = HD / 8;  // 16-byte chunks per key row
+  constexpr int NT = threads<HD>();
 #pragma unroll
   for (int u = 0; u < BK * CPR / NT; ++u) {
     const int idx = tid + u * NT, c = idx / CPR, i = idx % CPR;
@@ -163,7 +183,7 @@ __device__ __forceinline__ void store_q(unsigned char* qs, int row,
 #pragma unroll
     for (int e = 0; e < 8; ++e) x[e] = 0.f;
     if (src) ld8(src + (qt * CH + u) * 8, x);
-    const uint32_t off = swz<ROWS>(row, qt * CH + u);
+    const uint32_t off = swz<rows<HD>()>(row, qt * CH + u);
 #pragma unroll
     for (int a = 0; a < NQ; ++a) {
       float pc[8];
@@ -192,7 +212,8 @@ __device__ __forceinline__ void split_pair(float lo, float hi,
 }
 
 // P's A fragments for the 4 k-steps of a 64-key tile, from the fp32
-// probabilities in the accumulator s.
+// probabilities in the accumulator s: all NP pieces (p_frags), or piece p
+// alone (p_piece; 0 is the largest).
 __device__ __forceinline__ void p_frags(const float (&s)[32],
                                         uint32_t (&pa)[NP][4][4]) {
 #pragma unroll
@@ -204,6 +225,19 @@ __device__ __forceinline__ void p_frags(const float (&s)[32],
       split_pair(s[e], s[e + 1], pc);
 #pragma unroll
       for (int i = 0; i < NP; ++i) pa[i][kk][reg] = pc[i];
+    }
+  }
+}
+__device__ __forceinline__ void p_piece(const float (&s)[32], int p,
+                                        uint32_t (&pa)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int reg = 0; reg < 4; ++reg) {
+      const int e = 8 * kk + 4 * (reg >> 1) + 2 * (reg & 1);
+      uint32_t pc[NP];
+      split_pair(s[e], s[e + 1], pc);
+      pa[kk][reg] = pc[p];
     }
   }
 }
@@ -362,10 +396,13 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
 }
 
 // D (m64 x n128, fp32) += A (m64 x k16, bf16, registers) x B (k16 x n128,
-// bf16, shared memory through bdesc, MN-major: wgmma's transpose flag 1).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+// bf16, shared memory through bdesc, MN-major: wgmma's transpose flag 1);
+// D is elements O..O+63 of d.
+template <int O, int N>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[N],
                                           const uint32_t (&a)[4],
                                           uint64_t bdesc) {
+  static_assert(O + 64 <= N, "accumulator slice out of range");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -378,22 +415,22 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "+f"(d[O + 0]), "+f"(d[O + 1]), "+f"(d[O + 2]), "+f"(d[O + 3]),
+        "+f"(d[O + 4]), "+f"(d[O + 5]), "+f"(d[O + 6]), "+f"(d[O + 7]),
+        "+f"(d[O + 8]), "+f"(d[O + 9]), "+f"(d[O + 10]), "+f"(d[O + 11]),
+        "+f"(d[O + 12]), "+f"(d[O + 13]), "+f"(d[O + 14]), "+f"(d[O + 15]),
+        "+f"(d[O + 16]), "+f"(d[O + 17]), "+f"(d[O + 18]), "+f"(d[O + 19]),
+        "+f"(d[O + 20]), "+f"(d[O + 21]), "+f"(d[O + 22]), "+f"(d[O + 23]),
+        "+f"(d[O + 24]), "+f"(d[O + 25]), "+f"(d[O + 26]), "+f"(d[O + 27]),
+        "+f"(d[O + 28]), "+f"(d[O + 29]), "+f"(d[O + 30]), "+f"(d[O + 31]),
+        "+f"(d[O + 32]), "+f"(d[O + 33]), "+f"(d[O + 34]), "+f"(d[O + 35]),
+        "+f"(d[O + 36]), "+f"(d[O + 37]), "+f"(d[O + 38]), "+f"(d[O + 39]),
+        "+f"(d[O + 40]), "+f"(d[O + 41]), "+f"(d[O + 42]), "+f"(d[O + 43]),
+        "+f"(d[O + 44]), "+f"(d[O + 45]), "+f"(d[O + 46]), "+f"(d[O + 47]),
+        "+f"(d[O + 48]), "+f"(d[O + 49]), "+f"(d[O + 50]), "+f"(d[O + 51]),
+        "+f"(d[O + 52]), "+f"(d[O + 53]), "+f"(d[O + 54]), "+f"(d[O + 55]),
+        "+f"(d[O + 56]), "+f"(d[O + 57]), "+f"(d[O + 58]), "+f"(d[O + 59]),
+        "+f"(d[O + 60]), "+f"(d[O + 61]), "+f"(d[O + 62]), "+f"(d[O + 63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc), "r"(1));
 }
 
@@ -402,6 +439,9 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 template <int HD, int NQ>
 __device__ __forceinline__ void qk_tile(float (&s)[32], uint32_t qa,
                                         uint32_t kt) {
+  // at hd 256 Q's NQ x 16 descriptors are formed here, each tile, not
+  // hoisted out of the tile loop into live registers (see pv_tile_lean)
+  if constexpr (HD > 128) asm volatile("" : "+r"(qa), "+r"(kt));
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
   fence_regs(s);
@@ -410,15 +450,15 @@ __device__ __forceinline__ void qk_tile(float (&s)[32], uint32_t qa,
   for (int a = NQ - 1; a >= 0; --a)
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss_n64(s, kmajor_desc<ROWS>(qa + a * q_bytes<HD>(), kk),
+      wgmma_ss_n64(s, kmajor_desc<rows<HD>()>(qa + a * q_bytes<HD>(), kk),
                    kmajor_desc<BK>(kt, kk));
   wg_commit_wait();
   fence_regs(s);
 }
 
-// O += P V over the tile at vt: NP pieces x 4 k-steps of m64n{hd}k16.
-// MN-major B: k-step kk starts at key row 16*kk (2048 B); 8-row groups
-// 1024 B apart, 64-dim column blocks 8192 B apart.
+// O += P V over the tile at vt (hd 64 and 128): NP pieces x 4 k-steps of
+// m64n{hd}k16. MN-major B: k-step kk starts at key row 16*kk (2048 B);
+// 8-row groups 1024 B apart, 64-dim column blocks 8192 B apart.
 template <int HD>
 __device__ __forceinline__ void pv_tile(float (&o)[HD / 2],
                                         const uint32_t (&pa)[NP][4][4],
@@ -433,10 +473,42 @@ __device__ __forceinline__ void pv_tile(float (&o)[HD / 2],
       if constexpr (HD == 64)
         wgmma_rs_n64(o, pa[p][kk], d);
       else
-        wgmma_rs_n128(o, pa[p][kk], d);
+        wgmma_rs_n128<0>(o, pa[p][kk], d);
     }
   wg_commit_wait();
   fence_regs(o);
+}
+
+// O += P V over the tile at vt at hd 256, where the accumulator alone is
+// 128 registers a thread: P's pieces are formed from the fp32
+// probabilities in s one at a time, smallest first, and each is waited for
+// before the next, so that 16 fragment registers are live instead of 48.
+// Per piece and k-step, two m64n128k16 over output columns 0-127 and
+// 128-255 (o's elements 0-63 and 64-127; V's column blocks 0-1 and 2-3).
+// vt passes through an empty asm so that its 8 descriptors are formed here
+// and not hoisted out of the tile loop into live registers.
+template <int HD>
+__device__ __forceinline__ void pv_tile_lean(float (&o)[HD / 2],
+                                             const float (&s)[32],
+                                             uint32_t vt) {
+  static_assert(HD == 256, "the lean P V is hd 256's");
+  asm volatile("" : "+r"(vt));
+#pragma unroll
+  for (int p = NP - 1; p >= 0; --p) {
+    uint32_t pa[4][4];
+    p_piece(s, p, pa);
+    fence_regs(o);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t v0 = vt + kk * 2048;
+      wgmma_rs_n128<0>(o, pa[kk], gmma_desc(v0, (BK * 128) >> 4, 64));
+      wgmma_rs_n128<64>(o, pa[kk], gmma_desc(v0 + 2 * BK * 128,
+                                             (BK * 128) >> 4, 64));
+    }
+    wg_commit_wait();
+    fence_regs(o);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -446,16 +518,17 @@ __device__ __forceinline__ void pv_tile(float (&o)[HD / 2],
 // window. q and o are (B, Sq, H, hd); K and V are addressed by keys.
 //
 // GQA packing: one CTA per (tile of BQ query positions, kv head, sequence),
-// its 128 rows the (position, head-in-group) pairs, position major: GC =
-// min(G, 128) heads of the group, BQ = 128 / GC positions (16 at
-// TinyLlama's G = 8). Each K/V tile is read once for all GC heads. A G that
-// does not divide 128 pads rows; G > 128 takes NHC = ceil(G / 128) CTAs
-// per kv head. The CTA walks tiles from the window's first (0 without
-// one) up to its causal limit min(lim, base[b] + last position + 1):
-// tiles past it are never loaded, and no key at or past that limit is
-// addressed (for paged keys: no table entry past maxblk is read).
+// its ROWS = rows<HD>() rows the (position, head-in-group) pairs, position
+// major: GC = min(G, ROWS) heads of the group, BQ = ROWS / GC positions (16
+// at TinyLlama's G = 8, 32 at Gemma-2's G = 2 and hd 256). Each K/V tile is
+// read once for all GC heads. A G that does not divide ROWS pads rows; G >
+// ROWS takes NHC = ceil(G / ROWS) CTAs per kv head. The CTA walks tiles
+// from the window's first (0 without one) up to its causal limit min(lim,
+// base[b] + last position + 1): tiles past it are never loaded, and no key
+// at or past that limit is addressed (for paged keys: no table entry past
+// maxblk is read).
 template <int HD, typename TQ, typename Keys>
-__global__ void __launch_bounds__(NT, 1)
+__global__ void __launch_bounds__(threads<HD>(), 1)
 flash_tile_kernel(const TQ* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v, TQ* __restrict__ o,
@@ -466,6 +539,7 @@ flash_tile_kernel(const TQ* __restrict__ q,
   // pieces of Q: three of an fp32 q, a bf16 q as it is
   constexpr int NQ = std::is_same<TQ, float>::value ? NP : 1;
   constexpr int TB = tile_bytes<HD>(), SB = stage_bytes<HD>();
+  constexpr int ROWS = rows<HD>(), NT = threads<HD>();
   const int G = H / K, BQ = ROWS / GC;
   const int q0 = blockIdx.x * BQ, b = blockIdx.z;
   const int kvh = blockIdx.y / NHC, hc = blockIdx.y % NHC;
@@ -539,17 +613,22 @@ flash_tile_kernel(const TQ* __restrict__ q,
     fence_async_smem();
     __syncthreads();
     float s[32];
-    uint32_t pa[NP][4][4];
+    uint32_t pa[NP][4][4];  // hd <= 128; at hd 256 pv_tile_lean forms P
     if (live) {
       qk_tile<HD, NQ>(s, qa, smem_addr(kt));
       softmax_tile<HD>(s, acc, m, l, qpos, j0, lim, window, scale, cap,
                        lane);
-      p_frags(s, pa);
+      if constexpr (HD <= 128) p_frags(s, pa);
     }
     cp_async_wait<2>();  // this tile's V
     fence_async_smem();
     __syncthreads();
-    if (live) pv_tile<HD>(acc, pa, smem_addr(kt + TB));
+    if (live) {
+      if constexpr (HD <= 128)
+        pv_tile<HD>(acc, pa, smem_addr(kt + TB));
+      else
+        pv_tile_lean<HD>(acc, s, smem_addr(kt + TB));
+    }
     __syncthreads();  // the stage is free for tile t + 2
   }
   finish_rows<HD>(acc, l, orow, lane);
@@ -566,6 +645,7 @@ int flash_tile_launch(const void* q, const void* k, const void* v, void* o,
                       float cap, cudaStream_t stream) {
   if ((reinterpret_cast<size_t>(k) | reinterpret_cast<size_t>(v)) & 15)
     return (int)cudaErrorMisalignedAddress;
+  constexpr int ROWS = rows<HD>();
   const int G = H / K, GC = G < ROWS ? G : ROWS;
   const int NHC = (G + GC - 1) / GC, BQ = ROWS / GC;
   auto kern = flash_tile_kernel<HD, TQ, Keys>;
@@ -575,7 +655,7 @@ int flash_tile_launch(const void* q, const void* k, const void* v, void* o,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid((Sq + BQ - 1) / BQ, K * NHC, B);
-  kern<<<grid, NT, smem, stream>>>(
+  kern<<<grid, threads<HD>(), smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<TQ*>(o), base, total,
       keys, Sq, H, K, GC, NHC, scale, window, cap);

@@ -104,6 +104,12 @@ __host__ __device__ constexpr size_t split_kv_smem(int R4) {
          (size_t)R4 * (HD + SKV_LDS) * sizeof(float) +
          (size_t)SKV_RB * sizeof(float);
 }
+// The largest instantiation, hd 256 with fp32 K/V at SKV_MAXR rows: 512 +
+// 131,072 + 82,176 + 16,384 = 230,144 of the 232,448 bytes a CTA can have.
+// The partial sums stay within SKV_RB at any hd: DS * R4 * CH <= 2048 and,
+// when KS > 1, KS * R4 * hd <= NT * 32 = 4096 floats.
+static_assert(split_kv_smem<256, float>(SKV_MAXR) <= 232448,
+              "split pass over 227 KB at hd 256");
 
 template <int HD, typename TQ, typename TKV, typename Keys>
 __global__ void __launch_bounds__(SKV_NT)

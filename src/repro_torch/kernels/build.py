@@ -123,6 +123,9 @@ def check(name: str, err: int, what: str):
 
 
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
+# head dims the attention kernels (K1-K5) are instantiated for:
+# TEOLA_DISPATCH in csrc/common.cuh
+HEAD_DIMS = (64, 128, 256)
 
 
 def dtype_code(t) -> int:

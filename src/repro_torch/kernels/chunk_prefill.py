@@ -6,9 +6,10 @@ Prefilling, and every chunk of a chunked prefill).
 Replaces the Pallas TPU kernel ``src/repro/kernels/chunk_prefill.py::
 chunk_prefill_attention`` (``_chunk_kernel``) with a CUDA kernel written
 for Hopper, ``repro_torch/csrc/chunk_prefill.cu``: K1's tensor-core tile
-kernel (``csrc/flash_tile.cuh``: GQA-packed 128-row tiles, bf16 K/V staged
-by cp.async, both products on wgmma with an fp32 q and the fp32
-probabilities in three bf16 pieces each) reading K/V rows through the
+kernel (``csrc/flash_tile.cuh``: GQA-packed 128-row tiles, 64 at head dim
+256, bf16 K/V staged by cp.async, both products on wgmma with an fp32 q
+and the fp32 probabilities in three bf16 pieces each) reading K/V rows
+through the
 block table straight from the ``(nb, bs, K, hd)`` pool, with the
 reference's causal block skip. Those files say what bounds it on the H100
 and how the design follows from that.

@@ -150,10 +150,10 @@ def decode_attention(q, k, v, length, *, window=None, cap=None, scale=None):
     if k.shape != (B, T, K, hd) or v.shape != k.shape or H % K:
         raise ValueError(f"decode_attention: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if hd not in (64, 128) or H // K > MAX_GROUP:
-        raise ValueError(f"decode_attention: head dim {hd} not in (64, 128)"
-                         f" or group {H // K} > {MAX_GROUP} (hd 256: "
-                         f"ROADMAP.md Queue 2, gaps)")
+    if hd not in build.HEAD_DIMS or H // K > MAX_GROUP:
+        raise ValueError(f"decode_attention: head dim {hd}, group {H // K};"
+                         f" the kernel takes head dims {build.HEAD_DIMS} "
+                         f"and groups up to {MAX_GROUP}")
     if k.dtype != v.dtype or not (k.device == v.device == q.device):
         raise ValueError("decode_attention: k/v dtype or device mismatch")
     if scale is None:

@@ -4,8 +4,8 @@ Partial/Full Prefilling, paper §4.2 Pass 3).
 Replaces the Pallas TPU kernel ``src/repro/kernels/flash_prefill.py::
 flash_prefill`` (``_kernel``) with a CUDA kernel written for Hopper,
 ``repro_torch/csrc/flash_prefill.cu`` over the tile core
-``csrc/flash_tile.cuh``: GQA-packed 128-row tiles, bf16 K/V staged by
-cp.async, both products on the tensor cores (wgmma) with an fp32 q and the
+``csrc/flash_tile.cuh``: GQA-packed 128-row tiles (64 rows at head dim
+256), bf16 K/V staged by cp.async, both products on the tensor cores (wgmma) with an fp32 q and the
 fp32 probabilities split into three bf16 pieces each. Those files say what
 bounds it on the H100 and how the design follows from that.
 
@@ -169,9 +169,9 @@ def flash_prefill(q, k, v, *, prefix_len=0, window=None, cap=None,
     if k.shape != (B, T, K, hd) or v.shape != k.shape or H % K:
         raise ValueError(f"flash_prefill: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if hd not in (64, 128):
-        raise ValueError(f"flash_prefill: head dim {hd} not in (64, 128) "
-                         f"(hd 256: ROADMAP.md Queue 2, gaps)")
+    if hd not in build.HEAD_DIMS:
+        raise ValueError(f"flash_prefill: head dim {hd}; the kernel takes "
+                         f"{build.HEAD_DIMS}")
     if k.dtype != v.dtype or not (k.device == v.device == q.device):
         raise ValueError("flash_prefill: k/v dtype or device mismatch")
     if scale is None:

@@ -121,10 +121,10 @@ def check_paged_args(what, q, k_pool, v_pool, block_tables, rows=1,
         raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} pools "
                          f"{tuple(k_pool.shape)} {tuple(v_pool.shape)} "
                          f"tables {tuple(block_tables.shape)}")
-    if hd not in (64, 128) or rows > max_rows:
-        raise ValueError(f"{what}: head dim {hd} not in (64, 128) or "
-                         f"{rows} query rows per kv head > {max_rows} "
-                         f"(hd 256: ROADMAP.md Queue 2, gaps)")
+    if hd not in build.HEAD_DIMS or rows > max_rows:
+        raise ValueError(f"{what}: head dim {hd}, {rows} query rows per kv "
+                         f"head; the kernel takes head dims "
+                         f"{build.HEAD_DIMS} and up to {max_rows} rows")
     if k_pool.dtype != v_pool.dtype or \
             not (k_pool.device == v_pool.device == block_tables.device
                  == q.device):

@@ -38,7 +38,7 @@ def _randn(rs, shape, dev, dtype):
 
 
 @pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("window,cap", [(None, None), (100, 50.0)])
 def test_kernels_match_plain(cuda, qdt, hd, window, cap):
     B, Sq, H, K, T = 3, 96, 8, 2, 256
@@ -105,7 +105,7 @@ def _launch_and_compare(fn, plain, args, kw, tol):
 
 
 @pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("window,cap", [(None, None), (100, 50.0)])
 def test_paged_kernels_match_plain(cuda, qdt, hd, window, cap):
     """K4 paged decode, K3 verify (Sq=4) and K5 chunked prefill (ragged
@@ -265,7 +265,7 @@ EDGE_LENGTHS = [1, 63, 64, 65, 127, 128, 129, 511, 512]
 
 
 @pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("T", [512, 200])
 @pytest.mark.parametrize("window,cap", [(None, None), (100, 50.0)])
 def test_split_decode_at_chunk_edges(cuda, qdt, hd, T, window, cap):
@@ -297,7 +297,7 @@ def _verify_inputs(rs, B, Sq, H, K, hd, bs, maxblk, dev, qdt):
 
 
 @pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("bs,maxblk", [(16, 32), (8, 25)])
 @pytest.mark.parametrize("window,cap", [(None, None), (100, 50.0)])
 @pytest.mark.parametrize("Sq,G", [(8, 8), (4, 16)])
@@ -394,7 +394,7 @@ def test_split_verify_from_two_host_threads(cuda):
 # K4 paged decode on the split-KV template
 
 @pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("bs,maxblk", [(16, 32), (8, 25)])
 @pytest.mark.parametrize("window,cap", [(None, None), (100, 50.0)])
 def test_paged_decode_at_chunk_edges(cuda, qdt, hd, bs, maxblk, window, cap):
@@ -511,7 +511,7 @@ def _prefill_inputs(rs, B, Sq, G, K, hd, T, dev, qdt, kvdt=torch.bfloat16,
 
 
 @pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("G", [1, 2, 4, 8])
 def test_flash_prefill_tc_matches_plain(cuda, qdt, hd, G):
     """K1 at every group size the GQA packing takes (128 / G positions per
@@ -528,7 +528,7 @@ def test_flash_prefill_tc_matches_plain(cuda, qdt, hd, G):
 
 
 @pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_flash_prefill_tc_window_softcap(cuda, qdt, hd):
     """A window that empties the long rows' leading tiles, and a softcap,
     at G = 8 and a ragged Sq."""
@@ -542,7 +542,7 @@ def test_flash_prefill_tc_window_softcap(cuda, qdt, hd):
 
 
 @pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_flash_prefill_fp32_kv(cuda, qdt, hd):
     """fp32 K/V (dispatched, stored by no engine) take the CUDA-core body
     and meet the same tolerances."""
@@ -554,7 +554,7 @@ def test_flash_prefill_fp32_kv(cuda, qdt, hd):
                         2e-5 if qdt == torch.float32 else 2e-2)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_flash_prefill_tc_at_three_times_scale(cuda, hd):
     """q, k ~ 3 N(0, 1): scores reach ~40, where fp32 rounding alone moves
     a probability by ~4e-6, and the fp32 plain version computed on the
@@ -598,7 +598,7 @@ def _chunk_inputs(rs, B, Sq, G, K, hd, bs, dev, qdt, kvdt=torch.bfloat16,
 
 
 @pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("G", [1, 4, 8, 16])
 @pytest.mark.parametrize("bs", [16, 32])
 def test_chunk_prefill_tc_matches_plain(cuda, qdt, hd, G, bs):
@@ -618,7 +618,7 @@ def test_chunk_prefill_tc_matches_plain(cuda, qdt, hd, G, bs):
 
 
 @pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_chunk_prefill_tc_window_softcap(cuda, qdt, hd):
     """A window that empties the long rows' leading tiles, and a softcap,
     at G = 8 and a ragged Sq."""
@@ -632,7 +632,7 @@ def test_chunk_prefill_tc_window_softcap(cuda, qdt, hd):
 
 
 @pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_chunk_prefill_fp32_pool(cuda, qdt, hd):
     """fp32 pools (dispatched, stored by no engine) take the CUDA-core body
     and meet the same tolerances."""
@@ -646,7 +646,7 @@ def test_chunk_prefill_fp32_pool(cuda, qdt, hd):
                         2e-5 if qdt == torch.float32 else 2e-2)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_chunk_prefill_tc_at_three_times_scale(cuda, hd):
     """q, k ~ 3 N(0, 1), as for K1: the kernel is held to 2e-5 of the plain
     version evaluated in float64, and must be closer to it than the fp32
@@ -703,6 +703,80 @@ def test_tile_kernels_in_a_cuda_graph(cuda):
                                                            start))
         assert torch.equal(o1, tfp.flash_prefill(q1, k1, v1,
                                                  prefix_len=pre))
+
+
+@pytest.mark.parametrize("hd", [96, 512])
+def test_wrappers_refuse_other_head_dims(cuda, hd):
+    """Head dims outside (64, 128, 256) raise on the card before any
+    launch: K1-K5 have no instantiation for them."""
+    rs = np.random.RandomState(119)
+    q = _randn(rs, (2, 8, 4, hd), cuda, torch.float32)
+    k = _randn(rs, (2, 64, 2, hd), cuda, torch.bfloat16)
+    kp = _randn(rs, (9, 16, 2, hd), cuda, torch.bfloat16)
+    t = torch.arange(1, 9, dtype=torch.int32, device=cuda).reshape(2, 4)
+    n = torch.tensor([8, 30], dtype=torch.int32, device=cuda)
+    calls = ((tfp.flash_prefill, (q, k, k)),
+             (tdec.decode_attention, (q[:, 0], k, k, n)),
+             (tpa.paged_decode_attention, (q[:, 0], kp, kp, t, n)),
+             (tpa.verify_attention, (q[:, :4], kp, kp, t, n)),
+             (tcp.chunk_prefill_attention, (q, kp, kp, t, n)))
+    for fn, args in calls:
+        n0 = fn.launches
+        with pytest.raises(ValueError, match="head dim"):
+            fn(*args)
+        assert fn.launches == n0, fn.__name__
+
+
+def test_hd256_kernels_in_a_cuda_graph(cuda):
+    """K1-K5 at Gemma-2's heads (H 16, K 8, hd 256: one 64-row warpgroup
+    per tile CTA) captured in one CUDA graph, then replayed after their
+    positions are rewritten in place: each replay equals an eager call on
+    the new positions bit for bit, and the plain version within 2e-5."""
+    rs = np.random.RandomState(120)
+    B, H, K, hd, T = 4, 16, 8, 256, 512
+    q1 = _randn(rs, (B, 64, H, hd), cuda, torch.float32)
+    q2 = _randn(rs, (B, H, hd), cuda, torch.float32)
+    k = _randn(rs, (B, T, K, hd), cuda, torch.bfloat16)
+    v = _randn(rs, (B, T, K, hd), cuda, torch.bfloat16)
+    qv, kp, vp, t = _verify_inputs(rs, B, 4, H, K, hd, 16, 32, cuda,
+                                   torch.float32)
+    q4 = _randn(rs, (B, H, hd), cuda, torch.float32)
+    q5 = _randn(rs, (B, 64, H, hd), cuda, torch.float32)
+    pre = torch.tensor([0, 37, 100, 200], dtype=torch.int32, device=cuda)
+    ln = torch.tensor([4, 130, 300, 512], dtype=torch.int32, device=cuda)
+    start = torch.tensor([0, 37, 100, 200], dtype=torch.int32, device=cuda)
+    calls = (
+        (tfp.flash_prefill, tfp.flash_prefill_plain, (q1, k, v),
+         dict(prefix_len=pre, cap=50.0)),
+        (tdec.decode_attention, tdec.decode_attention_plain,
+         (q2, k, v, ln), dict(window=64)),
+        (tpa.verify_attention, tpa.verify_attention_plain,
+         (qv, kp, vp, t, ln), {}),
+        (tpa.paged_decode_attention, tpa.paged_decode_attention_plain,
+         (q4, kp, vp, t, ln), dict(cap=50.0)),
+        (tcp.chunk_prefill_attention, tcp.chunk_prefill_attention_plain,
+         (q5, kp, vp, t, start), dict(window=64)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # build, attributes, allocator
+        for fn, _, args, kw in calls:
+            fn(*args, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn(*args, **kw) for fn, _, args, kw in calls]
+    for new_pre, new_ln, new_start in (
+            ([448, 0, 65, 300], [64, 65, 511, 5], [384, 1, 64, 250]),
+            ([1, 200, 447, 63], [512, 8, 129, 63], [16, 300, 0, 63])):
+        pre.copy_(torch.tensor(new_pre, dtype=torch.int32))
+        ln.copy_(torch.tensor(new_ln, dtype=torch.int32))
+        start.copy_(torch.tensor(new_start, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, (fn, plain, args, kw) in zip(outs, calls):
+            assert torch.equal(o, fn(*args, **kw)), fn.__name__
+            torch.testing.assert_close(o, plain(*args, **kw), rtol=2e-5,
+                                       atol=2e-5)
 
 
 # ---------------------------------------------------------------------------
