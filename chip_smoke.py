@@ -66,7 +66,8 @@ Phases, in order; any failure exits non-zero:
  10b. gemma: the same as phase 9 with the full 42-layer Gemma-2 9B
      (fp32, ~34 GiB) as the core LLM, dense then paged: K1/K2 on its 21
      global layers, K3-K5 on every layer, every launch at hd 256; the
-     whole model paged vs dense within 1e-2 of the logits' scale.
+     whole model paged vs dense within 1e-2 of the logits' scale; its
+     whole-model dense decode step timed at batch 1 and 4 (for [cost]).
      After each paged phase ([moe], [gemma]) the first answer that
      differs from the dense path's is traced through the core LLM's
      generations: other token ids (the first diverging token, its top-2
@@ -86,6 +87,20 @@ Phases, in order; any failure exits non-zero:
      checkpoint read back bit for bit, one step profiled; (d) the whole
      32-layer RWKV-6 3B the same way (batch 2 x 512, 5 steps: finite,
      params changed, 32 K6 forward and 32 backward launches per step).
+ 11b. mesh: the sharded path (models/sharding.py, launch/shard_rules.py)
+     at world size 1: a one-rank NCCL group and make_local_mesh(1, 1); the
+     sharded 2-layer TinyLlama-1.1B (full width) prefill, partial prefill
+     and decode through K1 and K2 and one sharded train step, each
+     against the unsharded port on the card (within 1e-6, equal K1 and K2
+     launches); the expert-parallel MoE layer at EP size 1 against the
+     one-device routed form (Qwen1.5-MoE-A2.7B's widths).
+ 11c. cost: the port's roofline prediction (launch/roofline_model.py over
+     launch/mesh.py's H100 peaks, fp32) beside the measured time of the
+     whole TinyLlama-1.1B and RWKV-6 3B train steps of phase 11 and of
+     the whole Gemma-2 9B's dense decode step, which phase 10b times on
+     its engine's weights at batch 1 and 4; the card's total_memory
+     beside HBM_BYTES; and one ``python -m repro_torch.launch.dryrun``
+     (a fake process group of 256 ranks, meta tensors) and its record.
  12. apps: every app of core/apps.py under every scheme of serve.py's
      SCHEMES, the 22-layer TinyLlama-1.1B as the core LLM on the dense
      path: advanced-RAG, search-gen and contextual retrieval under Teola
@@ -153,7 +168,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.bridge import tree_to  # noqa: E402
-from repro_torch.configs.base import Stage, get_config  # noqa: E402
+from repro_torch.configs.base import InputShape, Stage, get_config  # noqa: E402,E501
 from repro_torch.core.apps import ALL_APPS, build_engines, naive_rag  # noqa: E402,E501
 from repro_torch.core.engine_pool import replicas_of  # noqa: E402
 from repro_torch.core.teola import Teola  # noqa: E402
@@ -178,10 +193,12 @@ from repro_torch.models.transformer import apply_model, init_params  # noqa: E40
 from repro_torch.serving import kv_cache as kvc  # noqa: E402
 from repro_torch.training.data import doc_corpus  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-BF16_TC_FLOPS = 989e12                # dense bf16 tensor cores
+# H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit): one
+# source, the port's roofline constants
+from repro_torch.launch.mesh import (HBM_BW as HBM_BYTES_PER_S,  # noqa: E402
+                                     HBM_BYTES,
+                                     PEAK_FLOPS_BF16 as BF16_TC_FLOPS,
+                                     PEAK_FLOPS_FP32 as FP32_FLOPS)
 # K1 and K5 on the tensor cores (one tile kernel): an fp32 q and fp32
 # probabilities in three bf16 pieces each, three bf16 products per fp32 one
 TILE_PIECES = 3
@@ -2037,6 +2054,32 @@ def _model_size(card: str, tag: str):
     return show
 
 
+def _decode_step(card: str, tag: str, pos: int = 256, steps: int = 8):
+    """The core LLM's whole-model decode step on the engine's weights, a
+    dense cache at ``pos`` tokens, batch 1 and 4: wall ms per step after
+    2 warm-up steps (host clock around ``steps`` steps ending in a
+    synchronize), kept for [cost]."""
+    def run(core):
+        cfg = core.cfg
+        for B in (1, 4):
+            cache = kvc.init_cache(cfg, B, T, device=core.device)
+            x = torch.zeros((B, 1), dtype=torch.long, device=core.device)
+            with torch.inference_mode():
+                for i in range(2 + steps):
+                    if i == 2:
+                        torch.cuda.synchronize()
+                        t0 = time.time()
+                    apply_model(cfg, core.params, x, cache, pos + i)
+                torch.cuda.synchronize()
+            ms = 1e3 * (time.time() - t0) / steps
+            MEASURED[f"{tag} decode B={B}"] = (cfg, InputShape(
+                "decode", pos + steps, B, "decode"), ms)
+            print(f"[{tag}] whole-model decode step, batch {B}, cache "
+                  f"{pos}-{pos + steps}: {ms:.2f} ms [{card}]")
+            del cache
+    return run
+
+
 def phase_gemma(dev, card: str) -> dict:
     """Naive-RAG under Teola with the whole 42-layer Gemma-2 9B (hd 256,
     logit softcap 50, local 4096-token windows on every other layer) as
@@ -2053,7 +2096,9 @@ def phase_gemma(dev, card: str) -> dict:
     with _core_prompts() as dense_prompts, \
             _core_generations() as dense_gens, _head_dims() as dense_hd:
         out["dense"], answers = phase_serve(
-            dev, card, GEMMA, DENSE, "gemma", _model_size(card, "gemma"))
+            dev, card, GEMMA, DENSE, "gemma", lambda core: [
+                _model_size(card, "gemma")(core),
+                _decode_step(card, "gemma")(core)])
     _check_head_dim("gemma", dense_hd, DENSE, 256)
     _assert_empty_card("gemma-paged")
     # the paged engine's weights are the dense engine's (one seed): the
@@ -2515,6 +2560,8 @@ def train_whole(dev, card, arch, argv):
     moved = sum(not torch.equal(a, b) for a, b in zip(before, after))
     print(f"[train] {cfg.name}: {moved} of {len(after)} leaves under 16M "
           f"elements changed [{card}]")
+    MEASURED[f"train {cfg.name}"] = (cfg, InputShape(
+        "train", args.seq, args.batch, "train"), 1e3 * med)
     if not all(np.isfinite([h["ce"], h["gnorm"]]).all() for h in hist):
         raise AssertionError(f"train {arch}: non-finite {hist}")
     return args, cfg, params, hist, k6, moved == len(after)
@@ -2571,6 +2618,181 @@ def phase_train(dev, card: str) -> tuple:
                              f"steps, {k6_step} in the profiled step, "
                              f"params changed {moved}, device rows {per}")
     return res, k6[1]
+
+
+# ---------------------------------------------------------------------------
+# phase 11b: the sharded path at world size 1 ([mesh])
+
+MESH_TOL = 1e-6                       # sharded vs unsharded, world size 1
+EP_TOL = 1e-5                         # EP vs routed, of the output's scale
+
+
+def phase_mesh(dev, card: str):
+    """[mesh]: a one-rank NCCL group and ``make_local_mesh(1, 1)``; the
+    sharded 2-layer TinyLlama-1.1B (full width) prefill, partial prefill
+    and decode (K1, K2) and one sharded train step, each against the
+    unsharded port on the card; the expert-parallel MoE layer at EP size
+    1 against ``routed``. The group is destroyed before the next phase."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import shard_rules as sr
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.sharding import mesh_context
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+    store = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "mesh_store")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    torch.cuda.set_device(0)            # before the DeviceMesh: its device
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_local_mesh(1, 1)
+        cfg = two_layer(TINYLLAMA)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = init_params(cfg, gen, torch.float32, dev)
+        toks = np.random.RandomState(SEED).randint(0, cfg.vocab_size, 152)
+
+        def counted(run):
+            flash_prefill.launches = decode_attention.launches = 0
+            out = run()
+            torch.cuda.synchronize()
+            return out, (flash_prefill.launches, decode_attention.launches)
+
+        (want, _), n_plain = counted(lambda: run_model(cfg, params, dev,
+                                                       toks))
+        with mesh_context(mesh):
+            shards = sr.shard_tree(params, mesh,
+                                   specs=sr.model_specs(cfg, mesh))
+            (got, _), n_mesh = counted(lambda: run_model(cfg, shards, dev,
+                                                         toks))
+        err = _max_err(got, want)
+        print(f"[mesh] {cfg.name} sharded on mesh (1, 1) ('data', 'model') "
+              f"over NCCL vs unsharded, prefill 100 + partial 40 + 8 decode "
+              f"steps: max |dlogits| {err:.3e} (tolerance {MESH_TOL:g}); "
+              f"K1, K2 launches {n_mesh} sharded, {n_plain} unsharded "
+              f"[{card}]")
+        if not err <= MESH_TOL or n_mesh != n_plain or n_mesh != (4, 16):
+            raise AssertionError(f"mesh forward: {err}, {n_mesh}, {n_plain}")
+
+        batch = _train_batch(cfg, dev)
+        oc = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+        step = make_train_step(cfg, oc, compute_dtype=torch.float32)
+        p1 = tree_map(torch.clone, params)
+        p1, _, m1 = step(p1, init_opt_state(oc, p1), batch)
+        with mesh_context(mesh):
+            p2 = sr.shard_tree(params, mesh,
+                               specs=sr.model_specs(cfg, mesh))
+            p2, _, m2 = step(p2, init_opt_state(oc, p2),
+                             {k: sr.shard_batch(v, mesh)
+                              for k, v in batch.items()})
+        loss_err = abs(m1["loss"].item() - m2["loss"].item()) / \
+            abs(m1["loss"].item())
+        gn_err = abs(m1["gnorm"].item() - m2["gnorm"].item()) / \
+            m1["gnorm"].item()
+        leaf_err = max(_leaf_errs(tree_leaves(p2), tree_leaves(p1)))
+        print(f"[mesh] one sharded train step (fp32, {TRAIN_B} x "
+              f"{TRAIN_S}) vs unsharded: loss {loss_err:.3e}, gnorm "
+              f"{gn_err:.3e}, updated leaves {leaf_err:.3e} of their scale "
+              f"(tolerance {MESH_TOL:g}) [{card}]")
+        if not max(loss_err, gn_err, leaf_err) <= MESH_TOL:
+            raise AssertionError(f"mesh train step: {loss_err}, {gn_err}, "
+                                 f"{leaf_err}")
+        del params, shards, p1, p2
+        _free()
+
+        qcfg = get_config(QWEN)
+        E = qcfg.moe.num_experts
+        # capacity E / k * ... holds every assignment: nothing dropped
+        qcfg = dataclasses.replace(qcfg, moe=dataclasses.replace(
+            qcfg.moe, capacity_factor=float(E)))
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        p = {k: v[0] for k, v in moe.init_moe_params(
+            gen, qcfg, torch.float32, dev, 1).items() if k != "shared"}
+        x = torch.randn((64, qcfg.d_model), generator=gen, device=dev)
+        want, aux_w = moe.routed(qcfg, p, x)
+        with mesh_context(mesh):
+            specs = {k: sr.param_spec(("moe", k), v.shape, mesh)
+                     for k, v in p.items()}
+            got, aux_g = moe.routed_ep(qcfg, p, x, mesh, specs)
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item() / want.abs().max().item()
+        ea = abs(aux_g.item() - aux_w.item())
+        print(f"[mesh] {QWEN} MoE layer ({E} experts, top-{qcfg.moe.top_k}, "
+              f"64 tokens) expert-parallel at EP size 1 vs routed: "
+              f"{e:.3e} of the output's scale (tolerance {EP_TOL:g}), aux "
+              f"{ea:.3e} [{card}]")
+        if not (e <= EP_TOL and ea <= MESH_TOL):
+            raise AssertionError(f"mesh EP: {e}, aux {ea}")
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+
+
+# ---------------------------------------------------------------------------
+# phase 11c: the cost model against the card ([cost])
+
+MEASURED = {}          # [train] and [gemma]: "name" -> (cfg, shape, ms)
+
+
+def phase_cost(card: str):
+    """[cost]: the port's roofline prediction (``launch/roofline_model.py``
+    over ``launch/mesh.py``'s H100 peaks, fp32 compute, fp32 weight bytes)
+    beside the time [train] and [gemma] measured for the same step, and
+    one dry-run subprocess's record. Runs nothing on the card again."""
+    from repro_torch.launch.roofline_model import (analytic_bytes,
+                                                   analytic_flops,
+                                                   roofline_terms)
+    kinds = sorted(name.split()[0] for name in MEASURED)
+    if kinds != ["gemma", "gemma", "train", "train"]:
+        raise AssertionError(f"[cost] needs the two whole-model train "
+                             f"steps and Gemma-2's decode steps: {MEASURED}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[cost] device total_memory {total} B ({total / 1e9:.2f} GB) "
+          f"beside the roofline's HBM_BYTES {HBM_BYTES} B [{card}]")
+    for name, (cfg, ish, ms) in MEASURED.items():
+        flops = analytic_flops(cfg, ish)
+        nbytes = analytic_bytes(cfg, ish, 1, dtype_bytes=4)
+        t = roofline_terms(flops, nbytes, 0.0, FP32_FLOPS)
+        t.pop("collective_s")
+        dom = max(t, key=t.get)
+        print(f"[cost] {name} ({cfg.num_layers} layers, batch "
+              f"{ish.global_batch} x {ish.seq_len}): predicted compute "
+              f"{1e3 * t['compute_s']:.2f} ms ({flops:.4g} FLOP at "
+              f"{FP32_FLOPS:g}/s), memory {1e3 * t['memory_s']:.2f} ms "
+              f"({nbytes:.4g} B at {HBM_BYTES_PER_S:g} B/s), dominant "
+              f"{dom}; measured {ms:.2f} ms = "
+              f"{ms / (1e3 * t[dom]):.2f}x the prediction [{card}]")
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "dryrun")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         TINYLLAMA, "--shape", "decode_32k", "--out", out],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=SRC))
+    files = os.listdir(out) if os.path.isdir(out) else []
+    if proc.returncode != 0 or len(files) != 1:
+        raise AssertionError(f"dry run rc {proc.returncode}, {files}: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    with open(os.path.join(out, files[0])) as f:
+        rec = json.load(f)
+    shutil.rmtree(out)
+    print(f"[cost] python -m repro_torch.launch.dryrun --arch {TINYLLAMA} "
+          f"--shape decode_32k: rc 0 in {time.time() - t0:.1f} s (a fake "
+          f"process group, meta tensors: nothing runs on the card); "
+          f"record: " + json.dumps({k: rec[k] for k in (
+              "status", "devices", "per_device", "memory_analysis",
+              "model_flops_per_device", "useful_flops_ratio",
+              "roofline_terms_s", "dominant_term")}) + f" [{card}]")
+    if rec["status"] != "ok" or rec["devices"] != 256:
+        raise AssertionError(f"dry run record {rec}")
 
 
 # ---------------------------------------------------------------------------
@@ -3053,6 +3275,8 @@ def main() -> int:
     timed("gemma", phase_gemma, dev, card)
     kres["rwkv6_scan_bwd"], k6_bwd = timed("train", phase_train, dev, card)
     launches["rwkv6_scan_bwd"] = k6_bwd
+    timed("mesh", phase_mesh, dev, card)
+    timed("cost", phase_cost, card)
     timed("apps", phase_apps, dev, card)
     timed("layers", phase_layers, dev, card)
     timed("examples", phase_examples, card)

@@ -12,6 +12,7 @@ non-zero value into a ``RuntimeError``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -133,3 +134,28 @@ def dtype_code(t) -> int:
     if code is None:
         raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
     return code
+
+
+_shape_only = threading.local()
+
+
+@contextlib.contextmanager
+def shape_only():
+    """Inside this block a wrapper given meta tensors runs its kernel's
+    plain version, which on meta computes only shapes: the dry run's pass
+    over one rank's shards. Outside it a meta tensor is refused like any
+    device other than the CPU and CUDA."""
+    prev = getattr(_shape_only, "on", False)
+    _shape_only.on = True
+    try:
+        yield
+    finally:
+        _shape_only.on = prev
+
+
+def plain_device(t) -> bool:
+    """Whether a wrapper given ``t`` runs its kernel's plain version: a CPU
+    tensor, or a meta tensor inside ``shape_only``. A CUDA tensor launches
+    the kernel; any other device raises."""
+    return t.device.type == "cpu" or (
+        t.device.type == "meta" and getattr(_shape_only, "on", False))

@@ -76,7 +76,7 @@ def chunk_prefill_attention(q, k_pool, v_pool, block_tables, start, *,
     position ``start[b] + i``; k_pool, v_pool (nb,bs,K,hd); block_tables
     (B,maxblk); start (B,) int. Returns (B,Sq,H,hd) in q's dtype. Sq == 1
     at start = length - 1 reduces to ``paged_decode_attention``."""
-    if q.device.type == "cpu":
+    if build.plain_device(q):
         return chunk_prefill_attention_plain(q, k_pool, v_pool, block_tables,
                                              start, window=window, cap=cap,
                                              scale=scale)

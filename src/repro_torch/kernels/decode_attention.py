@@ -140,7 +140,7 @@ def split_kv_plain(q, k, v, length, *, window=None, cap=None, scale=None,
 def decode_attention(q, k, v, length, *, window=None, cap=None, scale=None):
     """q (B,H,hd) float32|bfloat16; k,v (B,T,K,hd) bfloat16|float32;
     length (B,) int. Returns (B,H,hd) in q's dtype."""
-    if q.device.type == "cpu":
+    if build.plain_device(q):
         return decode_attention_plain(q, k, v, length, window=window,
                                       cap=cap, scale=scale)
     if q.device.type != "cuda":

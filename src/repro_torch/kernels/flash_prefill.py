@@ -158,7 +158,7 @@ def flash_prefill(q, k, v, *, prefix_len=0, window=None, cap=None,
     prefix_len+Sq). prefix_len / total_len: int or (B,) tensor
     (total_len defaults to prefix_len + Sq). Returns (B,Sq,H,hd) in q's
     dtype."""
-    if q.device.type == "cpu":
+    if build.plain_device(q):
         return flash_prefill_plain(q, k, v, prefix_len=prefix_len,
                                    window=window, cap=cap, scale=scale,
                                    total_len=total_len)

@@ -140,7 +140,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, length, *,
     """q (B,H,hd) float32|bfloat16; k_pool, v_pool (nb,bs,K,hd) shared
     pools; block_tables (B,maxblk) physical block per logical block;
     length (B,) valid lengths. Returns (B,H,hd) in q's dtype."""
-    if q.device.type == "cpu":
+    if build.plain_device(q):
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                             length, window=window, cap=cap,
                                             scale=scale)
@@ -178,7 +178,7 @@ def verify_attention(q, k_pool, v_pool, block_tables, length, *,
     TOTAL valid length including the chunk (query i sits at
     length - Sq + i; its KV already scattered into the pool). Returns
     (B,Sq,H,hd) in q's dtype."""
-    if q.device.type == "cpu":
+    if build.plain_device(q):
         return verify_attention_plain(q, k_pool, v_pool, block_tables,
                                       length, window=window, cap=cap,
                                       scale=scale)

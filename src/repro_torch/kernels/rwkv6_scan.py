@@ -85,6 +85,10 @@ def rwkv6_scan_plain(r, k, v, w, u, state0, boundaries=None):
     rf, kf, vf, wf = [a.to(dt) for a in (r, k, v, w)]
     uf = u.to(dt)
     st = state0.to(dt)
+    if r.device.type == "meta":     # the dry run's shape-only pass
+        if boundaries is not None:
+            boundaries.extend([st] * -(-r.shape[1] // SAVE_EVERY))
+        return torch.empty(r.shape, dtype=dt, device=r.device), st
     ys = []
     for t in range(r.shape[1]):
         if boundaries is not None and t % SAVE_EVERY == 0:
@@ -122,7 +126,9 @@ def rwkv6_scan_bwd_plain(r, k, v, w, u, boundaries, dy, dstate=None):
     du = torch.zeros((H, hd), dtype=dt, device=r.device)
     vdy = (vf * dyf).sum(-1, keepdim=True)                  # (B,S,H,1)
     bonus = (rf * uf * kf).sum(-1, keepdim=True)            # (B,S,H,1)
-    for n in reversed(range(boundaries.shape[0])):
+    # meta tensors (the dry run's shape-only pass) take the shapes only
+    chunks = () if r.device.type == "meta" else range(boundaries.shape[0])
+    for n in reversed(chunks):
         t0, t1 = n * SAVE_EVERY, min(S, (n + 1) * SAVE_EVERY)
         st, prev = boundaries[n].to(dt), []
         for t in range(t0, t1):
@@ -215,7 +221,9 @@ def rwkv6_scan_bwd_split_plain(r, k, v, w, u, boundaries, dy, dstate=None):
     dr, dk, dv, dw = [torch.empty((B, S, H, hd), device=r.device)
                       for _ in range(4)]
     du = torch.zeros((B, H, hd), device=r.device)
-    for n in reversed(range(boundaries.shape[0])):
+    # meta tensors (the dry run's shape-only pass) take the shapes only
+    chunks = () if r.device.type == "meta" else range(boundaries.shape[0])
+    for n in reversed(chunks):
         t0, t1 = n * SAVE_EVERY, min(S, (n + 1) * SAVE_EVERY)
         vdy = {t: _tree_sum(_seq_sum(
             (vf[:, t] * dyf[:, t]).reshape(B, H, lanes, hd // lanes), -1))
@@ -318,7 +326,7 @@ def rwkv6_scan_save(r, k, v, w, u, state0):
     (ceil(S / SAVE_EVERY), B,H,hd,hd) being the states before steps 0,
     SAVE_EVERY, ...: K6 storing them on CUDA tensors (one launch, counted
     by ``rwkv6_scan.launches``), the plain recurrence on CPU tensors."""
-    if r.device.type == "cpu":
+    if build.plain_device(r):
         bnd = []
         y, st = rwkv6_scan_plain(r, k, v, w, u, state0, bnd)
         return y, st, torch.stack(bnd)
@@ -329,7 +337,7 @@ def rwkv6_scan_bwd(r, k, v, w, u, boundaries, dy, dstate=None):
     """The gradients of K6 (see ``rwkv6_scan_bwd_plain`` for the
     arguments and results): the backward kernel on CUDA tensors, which
     returns them in float32; the plain version on CPU tensors."""
-    if r.device.type == "cpu":
+    if build.plain_device(r):
         return rwkv6_scan_bwd_plain(r, k, v, w, u, boundaries, dy, dstate)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan_bwd: unsupported device {r.device}")
@@ -406,7 +414,7 @@ def rwkv6_scan(r, k, v, w, u, state0, out_state=None):
                              "update; under autograd the final state is "
                              "returned instead")
         return RWKV6Scan.apply(r, k, v, w, u, state0)
-    if r.device.type == "cpu":
+    if build.plain_device(r):
         y, st = rwkv6_scan_plain(r, k, v, w, u, state0)
         if out_state is not None:
             st = out_state.copy_(st)

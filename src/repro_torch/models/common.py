@@ -118,6 +118,13 @@ def apply_rope(x, positions, theta: float, kind: str = "neox"):
 # Init helpers: the shapes and scales of the reference's initializers, drawn
 # from an explicit torch.Generator (the numbers differ from jax.random's).
 
+def draw_device(generator, device):
+    """Where a draw happens: the generator's device, or ``device`` for
+    ``generator=None`` (torch's default generator; on the meta device,
+    which ``transformer.param_shapes`` uses, nothing is drawn)."""
+    return device if generator is None else generator.device
+
+
 def dense_init(generator, shape, dtype, device, scale: float | None = None,
                fan_in: int | None = None):
     """``fan_in`` defaults to shape[0]; stacked (repeat-leading) weights
@@ -128,11 +135,11 @@ def dense_init(generator, shape, dtype, device, scale: float | None = None,
     # scaled in place: a stacked expert tensor (Qwen1.5-MoE's w_gate is
     # 16.6 GB in fp32) is never held twice
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=generator.device).mul_(std)
+                    device=draw_device(generator, device)).mul_(std)
     return w.to(device=device, dtype=dtype)
 
 
 def embed_init(generator, shape, dtype, device):
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=generator.device).mul_(0.02)
+                    device=draw_device(generator, device)).mul_(0.02)
     return w.to(device=device, dtype=dtype)

@@ -18,15 +18,27 @@ the reference, too, computes outside any Pallas kernel.
 is the tests' oracle and is not on any serving path.
 
 Shared experts are a plain dense FFN added to the routed output (the
-DeepSeek-V3 / Qwen-MoE structure). The expert-parallel path of the
-reference (``routed_ep``: capacity, ``all_to_all``) needs several devices
-and is not ported yet (ROADMAP.md Queue 1, item 12).
+DeepSeek-V3 / Qwen-MoE structure).
+
+Under an active mesh with a 'model' axis of more than one rank,
+``moe_ffn`` takes the reference's expert-parallel path, ``routed_ep``:
+each rank routes its own slice of the tokens (the local batch split
+over 'model'), with a per-sender capacity per expert and GShard-style
+dropping at ``capacity_factor``; dispatch and combine are two
+``all_to_all`` calls over the EP axes ('model', or 'model' x 'data'
+under the ep_all_axes flag); experts are padded up to a multiple of the
+EP group and each rank computes its own. Its shapes do not depend on the
+routing, so it needs no host sync. Shared experts are then a
+tensor-parallel dense FFN.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.common import act_fn, dense_init, leaf_dtype
+from repro_torch.models.sharding import (active_mesh, all_gather,
+                                         all_reduce, all_to_all, entry,
+                                         materialize, materialize_tree)
 
 
 def init_moe_params(generator, cfg, dtype, device, repeat: int):
@@ -132,15 +144,154 @@ def routed_dense_plain(cfg, p, x2d):
     return out, aux_load_balance_loss(cfg, logits, idx)
 
 
+# ---------------------------------------------------------------------------
+# expert parallelism (explicit SPMD under an active mesh)
+
+def _expert_ffn(act, xg, w_gate, w_up, w_down):
+    """xg (E, C, d); weights (E, d, f)/(E, f, d)."""
+    h = act(torch.einsum("ecd,edf->ecf", xg, w_gate)) * \
+        torch.einsum("ecd,edf->ecf", xg, w_up)
+    return torch.einsum("ecf,efd->ecd", h, w_down)
+
+
+def _ep_local(cfg, act, x_local, router_w, w_gate, w_up, w_down, *,
+              tp_size: int, ep):
+    """This rank's routed output for its tokens x_local (Tl, d), and the
+    load-balance loss of its routing. The expert weights are this rank's
+    E_pad / tp_size experts, whole (experts padded up to a multiple of
+    the EP group receive no tokens)."""
+    mo = cfg.moe
+    El = w_gate.shape[0]                   # local (padded) experts
+    E_pad = El * tp_size
+    Tl, d = x_local.shape
+    k = mo.top_k
+
+    gates, idx, logits = router_probs(cfg, router_w, x_local)
+    # per-sender capacity per expert (based on the REAL expert count)
+    cap = max(1, int(Tl * k / mo.num_experts * mo.capacity_factor))
+
+    # slot of each assignment, token-major: its exclusive count among the
+    # earlier assignments to the same expert
+    eid = idx.reshape(-1)                                  # (Tl*k,)
+    gat = gates.reshape(-1).to(x_local.dtype)
+    onehot = (eid[:, None] == torch.arange(
+        E_pad, device=eid.device)[None, :]).to(torch.int32)
+    pos_in_e = torch.cumsum(onehot, dim=0) - onehot          # exclusive
+    pos = torch.sum(pos_in_e * onehot, dim=-1)               # (Tl*k,)
+    keep = pos < cap
+    slot = eid * cap + torch.clamp(pos, max=cap - 1)
+
+    # scatter the kept tokens into the send buffer (E_pad*cap, d)
+    tok = x_local.repeat_interleave(k, dim=0)                # (Tl*k, d)
+    send = torch.zeros((E_pad * cap, d), dtype=x_local.dtype,
+                       device=x_local.device)
+    send = send.index_add(0, slot, torch.where(keep[:, None], tok, 0))
+
+    # rank j of the EP group receives its experts' slots from every sender
+    recv = all_to_all(send.reshape(tp_size, El * cap, d), ep)
+    recv = recv.reshape(tp_size, El, cap, d).movedim(1, 0).reshape(
+        El, tp_size * cap, d)
+    y = _expert_ffn(act, recv, w_gate, w_up, w_down)        # (El, tp*cap, d)
+
+    # route back, into the sender's slot layout
+    y = y.reshape(El, tp_size, cap, d).movedim(1, 0).reshape(
+        tp_size, El * cap, d)
+    back = all_to_all(y, ep).reshape(E_pad * cap, d)
+
+    # combine: each assignment's slot, weighted by its gate (0 if dropped)
+    yk = back[slot] * torch.where(keep, gat, 0.0)[:, None]
+    out = torch.sum(yk.reshape(Tl, k, d), dim=1)
+    counts = onehot[:, :mo.num_experts].sum(dim=0)
+    aux = _balance(mo.num_experts, torch.softmax(logits, dim=-1), counts,
+                   eid.numel())
+    return out, aux
+
+
+def _local_experts(w, spec, ep, E_pad, mesh):
+    """This rank's experts of a stacked expert weight (E, ., .), whole:
+    its own block where the leaf is expert-sharded over the EP axes, else
+    the full leaf padded to E_pad and cut."""
+    ep_entry = entry(ep)
+    w = materialize(w, spec, keep=0, keep_entry=ep_entry)
+    if spec[0] == ep_entry:
+        return w
+    El = E_pad // mesh.group_size(ep)
+    if E_pad != w.shape[0]:
+        w = torch.cat([w, w.new_zeros((E_pad - w.shape[0], *w.shape[1:]))])
+    i = mesh.index(ep)
+    return w[i * El:(i + 1) * El]
+
+
+def routed_ep(cfg, p, x_local, mesh, ps):
+    """Expert-parallel routed experts for this rank's tokens x_local
+    (Tl, d) -> (out (Tl, d), aux). ``p``: this rank's slices of the MoE
+    leaves, laid out by ``ps`` (their specs). The all_to_all runs along
+    the EP axes ('model' by default, ('model', 'data') under the
+    ep_all_axes flag); aux is averaged over 'model' and the batch axes,
+    as the reference's pmean."""
+    from repro_torch.launch.shard_rules import ep_axes
+    act = act_fn(cfg.act)
+    ep = ep_axes(mesh)
+    tp = mesh.group_size(ep)
+    E = cfg.moe.num_experts
+    E_pad = -(-E // tp) * tp
+    w = {n: _local_experts(p[n], ps[n], ep, E_pad, mesh)
+         for n in ("w_gate", "w_up", "w_down")}
+    router = materialize(p["router"], ps["router"])
+    out, aux = _ep_local(cfg, act, x_local, router, w["w_gate"], w["w_up"],
+                         w["w_down"], tp_size=tp, ep=ep)
+    over = ("model",) + tuple(a for a in ("pod", "data")
+                              if a in mesh.axis_names)
+    return out, all_reduce(aux, over) / mesh.group_size(over)
+
+
 def shared_expert_ffn(cfg, p, x):
     act = act_fn(cfg.act)
     sp = p["shared"]
     return (act(x @ sp["w_gate"]) * (x @ sp["w_up"])) @ sp["w_down"]
 
 
-def moe_ffn(cfg, p, x):
+def _moe_ffn_sharded(cfg, p, x, ps, mesh):
+    """moe_ffn on this rank's slices: expert parallelism where the mesh's
+    'model' axis has more than one rank (the reference's rule), else the
+    one-device routed path on the gathered leaves."""
+    from repro_torch.launch.shard_rules import batch_axes
+    B, S, d = x.shape
+    T = B * S
+    routed_p = {k: v for k, v in p.items() if k != "shared"}
+    routed_s = {k: v for k, v in ps.items() if k != "shared"}
+    if "model" in mesh.axis_names and mesh.shape["model"] > 1:
+        # the local tokens, padded up to and split over 'model' (unless
+        # 'model' already splits the batch, under flat_dp)
+        n = 1 if "model" in batch_axes(mesh) else mesh.shape["model"]
+        Tp = -(-T // n) * n
+        x2d = x.reshape(T, d)
+        if Tp != T:
+            x2d = torch.cat([x2d, x2d.new_zeros((Tp - T, d))])
+        r = mesh.index("model") if n > 1 else 0
+        out2d, aux = routed_ep(cfg, routed_p, x2d[r * Tp // n:
+                                                   (r + 1) * Tp // n],
+                               mesh, routed_s)
+        if n > 1:
+            out2d = all_gather(out2d, "model", 0)
+        out = out2d[:T].reshape(B, S, d)
+    else:
+        out2d, aux = routed(cfg, materialize_tree(routed_p, routed_s),
+                            x.reshape(T, d))
+        out = out2d.reshape(B, S, d)
+    if cfg.moe.num_shared_experts:
+        from repro_torch.models.transformer import ffn_sharded
+        out = out + ffn_sharded(cfg, p["shared"], ps["shared"], x)
+    return out, aux
+
+
+def moe_ffn(cfg, p, x, ps=None):
     """x (B,S,d) -> (out, aux_loss): the routed experts plus the shared
-    ones."""
+    ones. ``ps``: the leaves' specs, under an active mesh (``p`` then
+    holds this rank's slices)."""
+    mesh = active_mesh()
+    if mesh is not None:
+        return _moe_ffn_sharded(cfg, p, x, ps, mesh)
     B, S, d = x.shape
     out2d, aux = routed(cfg, p, x.reshape(B * S, d))
     out = out2d.reshape(B, S, d)

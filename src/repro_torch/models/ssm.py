@@ -21,8 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
-from repro_torch.models.common import (dense_init, group_norm_heads,
-                                       leaf_dtype)
+from repro_torch.models.common import (dense_init, draw_device,
+                                       group_norm_heads, leaf_dtype)
 
 
 def _token_shift(x, sx):
@@ -54,7 +54,8 @@ def init_rwkv_params(generator, cfg, dtype, device, repeat: int):
         return torch.full((R, *shape), value, dtype=dt, device=device)
 
     mix_base = torch.rand((R, 5, d), generator=generator,
-                          dtype=torch.float32, device=generator.device)
+                          dtype=torch.float32,
+                          device=draw_device(generator, device))
     return {
         "tm": {
             "mix_base": mix_base.to(device=device, dtype=dtype),
@@ -194,11 +195,17 @@ def mamba_branch(cfg, p, x, h_state, conv_state):
     da = torch.exp(dt[..., None] * A)                       # (B,S,dI,N)
     dbx = (dt * xf)[..., None] * Bc[:, :, None, :]          # (B,S,dI,N)
     h = h_state.float()
-    steps = []
-    for t in range(S):
-        h = torch.addcmul(dbx[:, t], da[:, t], h)
-        steps.append(h)
-    hs = torch.stack(steps, dim=1)
+    if dbx.device.type == "meta":
+        # the dry run's shape-only pass: one step over every position
+        # stands for the S steps (the same shapes and dependencies,
+        # without an S-step Python loop under autograd)
+        hs = torch.addcmul(dbx, da, h[:, None])
+    else:
+        steps = []
+        for t in range(S):
+            h = torch.addcmul(dbx[:, t], da[:, t], h)
+            steps.append(h)
+        hs = torch.stack(steps, dim=1)
     y = torch.einsum("bsdn,bsn->bsd", hs, Cc)
     y = y + p["D"] * xf
     out = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]

@@ -21,8 +21,26 @@ kv_cache.py); ``verify=True`` marks a speculative verify chunk on it.
 Recurrent layers (RWKV-6, the Mamba branch) keep a per-sequence state in
 the dense cache (``state``, ``sx_tm``, ``sx_cm``; ``ssm_h``, ``ssm_conv``),
 updated in place; they ignore ``pos``.
+
+Under ``models.sharding.mesh_context(mesh)`` ``apply_model`` runs
+explicit SPMD code on this rank's slices of the params
+(``launch/shard_rules.py::shard_tree``), its rows of the batch and its
+slice of the dense cache (``serving/kv_cache.py::init_cache``): a
+vocab-parallel embedding (rows over 'model', masked lookup, all-reduce);
+each weight's FSDP-sharded dims all-gathered at use and dropped after
+the layer (ZeRO-3); GQA attention over the rank's query heads when
+``shard_rules.head_parallel`` (``wq``/``wk``/``wv`` column-parallel,
+``wo`` row-parallel, then an all-reduce over 'model'; the KV heads its
+heads read); the dense FFN column- then row-parallel, then an
+all-reduce; MoE through expert parallelism (``models/moe.py``); RWKV,
+Mamba and MLA leaves gathered whole and computed whole on every rank;
+a vocab-parallel head all-gathered over 'model' into full logits. Each
+leaf's layout is read from its spec, never assumed. The paged pool is
+not sharded (the reference shards only the dense cache).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -32,6 +50,9 @@ from repro_torch.models import moe
 from repro_torch.models import ssm
 from repro_torch.models.common import (act_fn, dense_init, embed_init,
                                        rms_norm, softcap, tree_map)
+from repro_torch.models.sharding import (active_mesh, all_gather,
+                                         all_reduce, materialize,
+                                         materialize_tree)
 
 
 # ---------------------------------------------------------------------------
@@ -70,11 +91,12 @@ def init_layer_elem(generator, cfg: ModelConfig, spec: LayerSpec, dtype,
     return p
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
+def init_params(cfg: ModelConfig, generator: torch.Generator | None,
                 dtype=torch.float32, device="cuda"):
     """Random weights with the reference ``init_params``'s shapes and
     scales, drawn from ``generator`` on the generator's device and placed
-    on ``device``."""
+    on ``device`` (``generator=None``: torch's default generator on
+    ``device``)."""
     params = {"embed": embed_init(generator, (cfg.vocab_size, cfg.d_model),
                                   dtype, device),
               "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,
@@ -87,6 +109,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
          for spec in st.pattern]
         for st in cfg.stages]
     return params
+
+
+def param_shapes(cfg: ModelConfig, dtype=torch.bfloat16):
+    """Abstract param tree (meta tensors: nothing allocated, nothing
+    drawn) — used by the sharding rules and the dry run."""
+    return init_params(cfg, None, dtype, device="meta")
 
 
 # ---------------------------------------------------------------------------
@@ -136,10 +164,151 @@ def _hybrid_state(cfg, ce, B, device):
                         device=device))
 
 
-def apply_layer(cfg, spec, p, x, ce, pos, block_tables=None, verify=False):
+# ---------------------------------------------------------------------------
+# the sharded layer (explicit SPMD under an active mesh)
+
+def _whole_repeat(tree, specs):
+    """A stage element's leaves with their repeat dim gathered where its
+    spec shards it (the rules treat a stacked MoE shared expert's
+    (R, d, f) as expert-stacked, so R can split over 'model')."""
+    if isinstance(tree, dict):
+        return {k: _whole_repeat(v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_whole_repeat(v, s) for v, s in zip(tree, specs)]
+    return tree if specs[0] is None else all_gather(tree, specs[0], 0)
+
+
+def _layer_specs(specs):
+    """A stage element's spec tree with the leading repeat entry
+    dropped: the specs of one layer's leaves."""
+    if isinstance(specs, dict):
+        return {k: _layer_specs(v) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [_layer_specs(v) for v in specs]
+    return specs[1:]
+
+
+def _gqa_sharded(cfg, spec, p, ps, h, ce, pos, block_tables, verify, mesh):
+    """GQA over this rank's query heads (``head_parallel``): the local
+    columns of wq, the KV heads those heads read, the local rows of wo,
+    then an all-reduce over 'model'. Otherwise every head on every
+    rank."""
+    from repro_torch.launch.shard_rules import head_parallel
+    if not head_parallel(cfg, mesh):
+        return attn.gqa_layer(cfg, spec, materialize_tree(p, ps), h, ce,
+                              pos, block_tables, verify)[0]
+    tp, r = mesh.shape["model"], mesh.index("model")
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    lp = {"wq": materialize(p["wq"], ps["wq"], keep=1),
+          "wo": materialize(p["wo"], ps["wo"], keep=0)}
+    if cfg.qkv_bias:
+        lp["bq"] = materialize(p["bq"], ps["bq"], keep=0)
+    kv = ("wk", "wv") + (("bk", "bv") if cfg.qkv_bias else ())
+    if K % tp == 0:
+        for n in kv:
+            lp[n] = materialize(p[n], ps[n], keep=p[n].dim() - 1)
+        Kl = K // tp
+    else:                       # tp % K == 0: the one KV head read here
+        j = r * K // tp
+        for n in kv:
+            lp[n] = materialize(p[n], ps[n])[..., j * hd:(j + 1) * hd]
+        Kl = 1
+    if (lp["wq"].shape[-1], lp["wo"].shape[0], lp["wk"].shape[-1]) != \
+            (H // tp * hd, H // tp * hd, Kl * hd):
+        raise ValueError(f"wq/wo/wk specs {ps['wq']} {ps['wo']} {ps['wk']}"
+                         f" do not split whole heads over 'model'")
+    lcfg = dataclasses.replace(cfg, num_heads=H // tp, num_kv_heads=Kl,
+                               head_dim=hd)
+    out, _ = attn.gqa_layer(lcfg, spec, lp, h, ce, pos, block_tables,
+                            verify)
+    return all_reduce(out, "model")
+
+
+def ffn_sharded(cfg, p, ps, h):
+    """The dense FFN column- then row-parallel over 'model' and an
+    all-reduce, where the specs split f over 'model'; whole otherwise."""
+    if ps["w_gate"][-1] == ps["w_up"][-1] == ps["w_down"][0] == "model":
+        lp = {"w_gate": materialize(p["w_gate"], ps["w_gate"], keep=1),
+              "w_up": materialize(p["w_up"], ps["w_up"], keep=1),
+              "w_down": materialize(p["w_down"], ps["w_down"], keep=0)}
+        return all_reduce(_ffn(cfg, lp, h), "model")
+    return _ffn(cfg, materialize_tree(p, ps), h)
+
+
+def _embed_sharded(table, spec, inputs, mesh):
+    """The token lookup: vocab-parallel (each rank's rows, the others
+    masked to zero, then an all-reduce over 'model') where the table's
+    rows split over 'model'; a lookup in the gathered table otherwise."""
+    ids = inputs.long()
+    if spec[0] != "model":
+        return materialize(table, spec)[ids]
+    table = materialize(table, spec, keep=0)
+    n = table.shape[0]
+    local = ids - mesh.index("model") * n
+    mine = (local >= 0) & (local < n)
+    x = table[local.clamp(0, n - 1)]
+    return all_reduce(torch.where(mine[..., None], x, 0), "model")
+
+
+def _head_sharded(cfg, params, specs, x):
+    """Logits through a vocab-parallel head (the tied table's rows, or
+    lm_head's columns, over 'model'), all-gathered over 'model'."""
+    name, vdim = ("embed", 0) if cfg.tie_embeddings else ("lm_head", 1)
+    w = materialize(params[name], specs[name], keep=vdim)
+    logits = x @ (w.T if vdim == 0 else w).to(x.dtype)
+    if specs[name][vdim] == "model":
+        logits = all_gather(logits, "model", dim=-1)
+    return logits
+
+
+def _apply_layer_sharded(cfg, spec, p, ps, x, ce, pos, block_tables,
+                         verify, mesh):
+    if spec.kind == "rwkv":
+        return (*_rwkv_layer(cfg, materialize_tree(p, ps), x, ce), None)
+    h = rms_norm(x, materialize(p["ln1"], ps["ln1"]), cfg.norm_eps)
+    if cfg.attention_kind == "mla":
+        a_out, _ = attn.mla_layer(cfg, spec, materialize_tree(
+            p["attn"], ps["attn"]), h, ce, pos, block_tables)
+    else:
+        a_out = _gqa_sharded(cfg, spec, p["attn"], ps["attn"], h, ce, pos,
+                             block_tables, verify, mesh)
+    x = _mix_branches(cfg, spec, {k: materialize_tree(p[k], ps[k])
+                                  for k in ("mamba", "fuse_na", "fuse_ns")
+                                  if k in p}, x, h, a_out, ce)
+    h = rms_norm(x, materialize(p["ln2"], ps["ln2"]), cfg.norm_eps)
+    if spec.moe:
+        f_out, aux = moe.moe_ffn(cfg, p["moe"], h, ps["moe"])
+    else:
+        f_out, aux = ffn_sharded(cfg, p["mlp"], ps["mlp"], h), None
+    return x + f_out, ce, aux
+
+
+def _mix_branches(cfg, spec, p, x, h, a_out, ce):
+    """The residual after attention: Hymba's hybrid layer fuses the
+    attention output with its parallel Mamba branch."""
+    if spec.kind != "hybrid":
+        return x + a_out
+    h_state, conv_state = _hybrid_state(cfg, ce, x.shape[0], x.device)
+    s_out, new_h, new_conv = ssm.mamba_branch(cfg, p["mamba"], h,
+                                              h_state, conv_state)
+    if ce is not None:
+        h_state.copy_(new_h)
+        conv_state.copy_(new_conv)
+    return x + 0.5 * (rms_norm(a_out, p["fuse_na"], cfg.norm_eps)
+                      + rms_norm(s_out, p["fuse_ns"], cfg.norm_eps))
+
+
+def apply_layer(cfg, spec, p, x, ce, pos, block_tables=None, verify=False,
+                pspecs=None):
     """One transformer layer. ce: cache elem dict or None (paged pool
     elems when ``block_tables`` is given). Returns (x, new_cache_elem,
-    aux_loss), the cache elem updated in place."""
+    aux_loss), the cache elem updated in place. ``pspecs``: the layer's
+    leaf specs, under an active mesh (``p`` then holds this rank's
+    slices)."""
+    mesh = active_mesh()
+    if mesh is not None:
+        return _apply_layer_sharded(cfg, spec, p, pspecs, x, ce, pos,
+                                    block_tables, verify, mesh)
     if spec.kind == "rwkv":
         return (*_rwkv_layer(cfg, p, x, ce), None)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -149,17 +318,7 @@ def apply_layer(cfg, spec, p, x, ce, pos, block_tables=None, verify=False):
     else:
         a_out, _ = attn.gqa_layer(cfg, spec, p["attn"], h, ce, pos,
                                   block_tables, verify)
-    if spec.kind == "hybrid":
-        h_state, conv_state = _hybrid_state(cfg, ce, x.shape[0], x.device)
-        s_out, new_h, new_conv = ssm.mamba_branch(cfg, p["mamba"], h,
-                                                  h_state, conv_state)
-        if ce is not None:
-            h_state.copy_(new_h)
-            conv_state.copy_(new_conv)
-        x = x + 0.5 * (rms_norm(a_out, p["fuse_na"], cfg.norm_eps)
-                       + rms_norm(s_out, p["fuse_ns"], cfg.norm_eps))
-    else:
-        x = x + a_out
+    x = _mix_branches(cfg, spec, p, x, h, a_out, ce)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if spec.moe:
         f_out, aux = moe.moe_ffn(cfg, p["moe"], h)
@@ -200,8 +359,15 @@ def apply_model(cfg: ModelConfig, params, inputs, cache=None, pos=0, *,
     returning (B,1,vocab). ``aux`` is the sum of the MoE layers'
     load-balance losses (float32; 0 without MoE layers), the reference's
     third return value, which training adds to the loss."""
+    mesh = active_mesh()
+    specs = None
+    if mesh is not None:
+        from repro_torch.launch.shard_rules import model_specs
+        specs = model_specs(cfg, mesh)
     if inputs.is_floating_point():
         x = inputs.to(params["embed"].dtype)
+    elif mesh is not None:
+        x = _embed_sharded(params["embed"], specs["embed"], inputs, mesh)
     else:
         x = params["embed"][inputs.long()]
     if cfg.embed_scale:
@@ -215,25 +381,38 @@ def apply_model(cfg: ModelConfig, params, inputs, cache=None, pos=0, *,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device) \
         if return_aux else None
     for si, st in enumerate(cfg.stages):
-        layers = [_unstack(e, st.repeat) for e in params["stages"][si]]
+        elems = params["stages"][si]
+        lspecs = [None] * len(elems)
+        if specs is not None:
+            elems = [_whole_repeat(e, sp) for e, sp in
+                     zip(elems, specs["stages"][si])]
+            lspecs = [_layer_specs(e) for e in specs["stages"][si]]
+        layers = [_unstack(e, st.repeat) for e in elems]
         cache_st = cache["stages"][si] if cache is not None else None
         for r in range(st.repeat):
             for ei, spec in enumerate(st.pattern):
                 ce = None if cache_st is None else \
                     tree_map(lambda t: t[r], cache_st[ei])
                 x, _, aux = apply_layer(cfg, spec, layers[ei][r], x, ce,
-                                        pos, block_tables, verify)
+                                        pos, block_tables, verify,
+                                        lspecs[ei])
                 if return_aux and aux is not None:
                     aux_total = aux_total + aux
 
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    final_norm = params["final_norm"] if mesh is None else \
+        materialize(params["final_norm"], specs["final_norm"])
+    x = rms_norm(x, final_norm, cfg.norm_eps)
     if logits_at is not None:
         logits_at = torch.as_tensor(logits_at, device=x.device).long()
         x = x[torch.arange(x.shape[0], device=x.device), logits_at][:, None]
     elif logits_slice is not None:
         x = x[:, -logits_slice:, :]
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x @ head.to(x.dtype)
+    if mesh is not None:
+        logits = _head_sharded(cfg, params, specs, x)
+    else:
+        head = params["embed"].T if cfg.tie_embeddings else \
+            params["lm_head"]
+        logits = x @ head.to(x.dtype)
     logits = softcap(logits, cfg.final_logit_softcap)
     if return_aux:
         return logits, cache, aux_total

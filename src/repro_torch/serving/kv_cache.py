@@ -86,15 +86,27 @@ def elem_cache_shape(cfg: ModelConfig, spec: LayerSpec, repeat: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               chunk: int = 256, device="cuda"):
+               chunk: int = 256, device="cuda", mesh=None):
     """chunk: largest prefill chunk the caller will write (sizes the
-    sliding-window ring buffers)."""
+    sliding-window ring buffers). Under ``mesh`` (default: the active
+    mesh, if any) each array is this rank's slice of the global batch's
+    cache, by ``launch/shard_rules.py::cache_spec`` (on the meta device:
+    its shape only)."""
+    from repro_torch.models.sharding import active_mesh, local_shape
+    mesh = active_mesh() if mesh is None else mesh
+    if mesh is not None:
+        from repro_torch.launch.shard_rules import cache_spec, head_parallel
+        hp = head_parallel(cfg, mesh)
     stages = []
     for st in cfg.stages:
         elems = []
         for spec in st.pattern:
             shapes = elem_cache_shape(cfg, spec, st.repeat, batch, max_len,
                                       chunk)
+            if mesh is not None:
+                shapes = {n: (local_shape(shape, cache_spec(
+                    n, shape, mesh, batch=batch, head_parallel=hp), mesh),
+                    dtype) for n, (shape, dtype) in shapes.items()}
             elems.append({name: torch.zeros(shape, dtype=dtype,
                                             device=device)
                           for name, (shape, dtype) in shapes.items()})

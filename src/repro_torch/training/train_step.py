@@ -17,12 +17,26 @@ keeps the whole (B, K, G, S, S) float32 scores and probabilities of every
 layer for the backward. For TinyLlama-1.1B at 4 x 512 tokens per
 microbatch that is 134 MB each per layer, about 6 GB over 22 layers. So
 the functions here take no ``q_block``, the reference's query-block size.
+
+Under ``models.sharding.mesh_context(mesh)`` the step is the sharded
+one: params, moments and batch are this rank's slices
+(``launch/shard_rules.py``), and the loss is averaged over the batch
+axes. Each rank back-propagates its loss divided by the mesh size (every
+rank's loss is the mean over its rows, and the ranks that share rows
+hold equal copies), so that, the collectives being exact adjoints
+(``models/sharding.py``), the sum over the ranks that hold a param is its
+gradient: FSDP-sharded leaves come back reduce-scattered through their
+gather's backward, and every leaf is then all-reduced over the mesh axes
+it is replicated on. The global norm sums each leaf's squared local
+shard over the axes that shard it, so a replicated leaf counts once.
+AdamW then updates the local shards.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models.sharding import active_mesh, all_reduce, entry_axes
 from repro_torch.models.transformer import apply_model
 from repro_torch.training.optimizer import AdamWConfig, adamw_update
 
@@ -60,6 +74,28 @@ def embed_stub_loss(cfg, params, embeds, targets, *,
     return ce + AUX_COEF * aux, ce
 
 
+def _sync_sharded(cfg, grads, mesh):
+    """The sharded step's gradients: each leaf's summed over the mesh axes
+    it is replicated on; and the global norm over every leaf's shards.
+    Returns gnorm."""
+    from repro_torch.launch.shard_rules import model_specs
+    specs = model_specs(cfg, mesh)
+    sq = {}
+
+    def one(g, spec):
+        axes = tuple(a for e in spec for a in entry_axes(e))
+        rep = tuple(a for a in mesh.axis_names if a not in axes)
+        if rep:
+            g.copy_(all_reduce(g, rep))
+        key = mesh.ordered(axes)
+        sq[key] = sq.get(key, 0.0) + torch.sum(torch.square(g.float()))
+        return g
+    tree_map(one, grads, specs)
+    total = sum(all_reduce(v, axes) if axes else v
+                for axes, v in sorted(sq.items()))
+    return torch.sqrt(total)
+
+
 def make_train_step(cfg, opt_cfg: AdamWConfig, *, num_microbatches: int = 1,
                     compute_dtype=torch.bfloat16, stub: bool = False):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
@@ -76,6 +112,7 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, num_microbatches: int = 1,
                                compute_dtype=compute_dtype)
 
     def train_step(params, opt_state, batch):
+        mesh = active_mesh()
         leaves = tree_leaves(params)
         B = next(iter(batch.values())).shape[0]
         if B % num_microbatches:
@@ -92,7 +129,7 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, num_microbatches: int = 1,
                 for i in range(num_microbatches):
                     mb = {k: a[i * n:(i + 1) * n] for k, a in batch.items()}
                     l, c = loss_fn(params, mb)
-                    l.backward()
+                    (l if mesh is None else l / mesh.size).backward()
                     loss, ce = loss + l.detach(), ce + c.detach()
             grads = tree_map(lambda p: torch.zeros_like(
                 p, dtype=torch.float32) if p.grad is None else p.grad, params)
@@ -104,8 +141,13 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, num_microbatches: int = 1,
             for g in tree_leaves(grads):
                 g.div_(num_microbatches)
             loss, ce = loss / num_microbatches, ce / num_microbatches
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in tree_leaves(grads)))
+        if mesh is None:
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                   for g in tree_leaves(grads)))
+        else:
+            gnorm = _sync_sharded(cfg, grads, mesh)
+            loss = all_reduce(loss, mesh.axis_names) / mesh.size
+            ce = all_reduce(ce, mesh.axis_names) / mesh.size
         scale = torch.minimum(torch.ones_like(gnorm), 1.0 / (gnorm + 1e-9))
         for g in tree_leaves(grads):
             g.mul_(scale)
