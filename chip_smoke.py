@@ -20,7 +20,11 @@ Phases, in order; any failure exits non-zero:
      version and one library call: back-to-back calls between CUDA events
      (``ms``, which at decode sizes reads the wrapper's host work) and the
      device time of the kernels one call launches, from torch.profiler
-     (``device_ms``), for the kernel and for the library call.
+     (``device_ms``), for the kernel and for the library call. K1 and K2
+     with ``return_lse`` (o and each row's log-sum-exp) against their
+     plain versions at hd 64, 128 and 256, on a rank's slice of a
+     sequence-split cache: negative local prefixes, a chunk past the
+     slice, lengths 0 (such rows exactly o = 0, lse = -inf, no NaN).
   4. model: TinyLlama-1.1B at full width cut to 2 layers (random weights
      from a seeded torch.Generator): prefill, Pass-3 partial prefill and
      decode on the card through the kernels, against the same code on the
@@ -83,17 +87,24 @@ Phases, in order; any failure exits non-zero:
      params (the CPU replaying the card's MoE top-k choices), and 3 steps
      of every other architecture on the card (finite, params changed);
      (c) the whole 22-layer TinyLlama-1.1B through the port's train
-     launcher (batch 8 x 512, 2 microbatches, 20 steps: ce falls), its
-     checkpoint read back bit for bit, one step profiled; (d) the whole
+     launcher (batch 8 x 512, 2 microbatches, 20 steps, attention in
+     checkpointed query blocks of 64: ce falls; its peak GiB and median
+     step), its checkpoint read back bit for bit, one step profiled; (d)
+     the whole
      32-layer RWKV-6 3B the same way (batch 2 x 512, 5 steps: finite,
      params changed, 32 K6 forward and 32 backward launches per step).
  11b. mesh: the sharded path (models/sharding.py, launch/shard_rules.py)
      at world size 1: a one-rank NCCL group and make_local_mesh(1, 1); the
      sharded 2-layer TinyLlama-1.1B (full width) prefill, partial prefill
-     and decode through K1 and K2 and one sharded train step, each
-     against the unsharded port on the card (within 1e-6, equal K1 and K2
-     launches); the expert-parallel MoE layer at EP size 1 against the
-     one-device routed form (Qwen1.5-MoE-A2.7B's widths).
+     and decode through K1 and K2 on the reference's cache layout (the
+     sequence over 'model': K1 / K2 with their LSE, the partials merged)
+     and one sharded train step, each against the unsharded port on the
+     card (within 1e-6, equal K1 and K2 launches); RWKV-6 3B (time mix over
+     heads, channel mix over f), Hymba-1.5B (Mamba over dI) and
+     DeepSeek-V3's MLA layers at full width, 2 layers, the same calls,
+     within 1e-5 of the logits' scale; the expert-parallel MoE layer at EP
+     size 1 against the one-device routed form (Qwen1.5-MoE-A2.7B's
+     widths).
  11c. cost: the port's roofline prediction (launch/roofline_model.py over
      launch/mesh.py's H100 peaks, fp32) beside the measured time of the
      whole TinyLlama-1.1B and RWKV-6 3B train steps of phase 11 and of
@@ -128,8 +139,10 @@ fails the run.
 
 --timing is not the smoke run: it runs only the timed phases (the kernels
 of phase 3 and 7, K6's decode step cold and warm, K6's training forward
-and backward at batch 2 x 512 as in phase 11 (a), and the RWKV-6 serve
-path with its profiled query) and prints no result line. With --src DIR
+and backward at batch 2 x 512 as in phase 11 (a), the RWKV-6 serve
+path with its profiled query, and 6 steps of the whole TinyLlama-1.1B
+through the tree's own train launcher: peak GiB and median step, then
+one step profiled) and prints no result line. With --src DIR
 (accepted only with --timing) it takes repro_torch from DIR, so that two
 trees' kernels are timed by the same code in one chip call, e.g. a parent
 commit unpacked by ``git archive`` under build/.
@@ -516,6 +529,13 @@ def _hd256_here() -> bool:
     return not TIMING or 256 in getattr(build, "HEAD_DIMS", ())
 
 
+def _lse_here() -> bool:
+    """Whether the tree under test's K1 and K2 return their LSE (a parent
+    commit under --src may predate it)."""
+    import inspect
+    return "return_lse" in inspect.signature(flash_prefill).parameters
+
+
 def _time_prefill(q, k, v, kw, label):
     """K1 timed beside its plain version and SDPA (which applies no
     softcap: no single PyTorch call does). Returns the kernel's record."""
@@ -527,14 +547,17 @@ def _time_prefill(q, k, v, kw, label):
     nbytes, flops = _prefill_work(q, kw["prefix_len"], k)
     bound, by = _bound(nbytes, flops)
     tc_bound, tc_by = _bound(nbytes, TILE_PIECES * flops, BF16_TC_FLOPS)
+    lse_dev = device_ms(lambda: flash_prefill(q, k, v, return_lse=True,
+                                              **kw)) if _lse_here() else None
     print(f"[kernels] flash_prefill {label}: kernel {ms:.4f} ms (device "
-          f"{_fmt(dev_ms)}), plain {plain:.4f} ms, sdpa {lib:.4f} ms (device "
+          f"{_fmt(dev_ms)}; with the LSE {_fmt(lse_dev)}), plain "
+          f"{plain:.4f} ms, sdpa {lib:.4f} ms (device "
           f"{_fmt(lib_dev)}), bound {bound:.4f} ms ({by}, fp32 at 67 "
           f"TFLOP/s), tensor-core bound {tc_bound:.4f} ms ({tc_by}, "
           f"{TILE_PIECES} bf16 products per fp32 one at 989 TFLOP/s)")
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound,
                 bound_by=by, tc_bound_ms=tc_bound, library_ms=lib,
-                library_device_ms=lib_dev)
+                library_device_ms=lib_dev, lse_device_ms=lse_dev)
 
 
 def _time_decode(q, k, v, ln, kw, label):
@@ -546,12 +569,86 @@ def _time_decode(q, k, v, ln, kw, label):
     lib, lib_dev = cuda_ms(sdpa), device_ms(sdpa)
     nbytes, flops = _decode_work(q, ln, k)
     bound, by = _bound(nbytes, flops)
+    lse_dev = device_ms(lambda: decode_attention(
+        q, k, v, ln, return_lse=True, **kw)) if _lse_here() else None
     print(f"[kernels] decode_attention {label}: kernel {ms:.4f} ms (device "
-          f"{_fmt(dev_ms)}: split + combine), plain {plain:.4f} ms, sdpa "
-          f"{lib:.4f} ms (device {_fmt(lib_dev)}), bound {bound:.4f} ms "
-          f"({by})")
+          f"{_fmt(dev_ms)}: split + combine; with the LSE {_fmt(lse_dev)}), "
+          f"plain {plain:.4f} ms, sdpa {lib:.4f} ms (device "
+          f"{_fmt(lib_dev)}), bound {bound:.4f} ms ({by})")
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound,
-                bound_by=by, library_ms=lib, library_device_ms=lib_dev)
+                bound_by=by, library_ms=lib, library_device_ms=lib_dev,
+                lse_device_ms=lse_dev)
+
+
+LSE_TOL = 1e-4                        # each row's log-sum-exp, absolute
+
+
+def _lse_errs(name, got, want, qdt, label):
+    """K1's or K2's (o, lse) against its plain version's: o within TOL,
+    the finite LSEs within LSE_TOL, and the rows that see no key exactly
+    o = 0 and lse = -inf in both, with no NaN anywhere. Returns (o error,
+    lse error, empty rows)."""
+    (o, lse), (o_p, lse_p) = got, want
+    empty = torch.isneginf(lse_p)
+    if torch.isnan(o).any() or torch.isnan(lse).any():
+        raise AssertionError(f"{name} {label}: NaN in (o, lse)")
+    if not torch.equal(torch.isneginf(lse), empty) or \
+            (o.float()[empty] != 0).any():
+        raise AssertionError(f"{name} {label}: empty rows differ from the "
+                             f"plain version's (lse -inf, o = 0)")
+    e_o = (o.float() - o_p.float()).abs().max().item()
+    e_l = (lse - lse_p)[~empty].abs().max().item() if (~empty).any() \
+        else 0.0
+    print(f"[kernels] {name} {label} with LSE: o {e_o:.3e} (tolerance "
+          f"{TOL[qdt]:g}), lse {e_l:.3e} (tolerance {LSE_TOL:g}), "
+          f"{int(empty.sum())} empty rows (o = 0, lse = -inf)")
+    if not (e_o <= TOL[qdt] and e_l <= LSE_TOL):
+        raise AssertionError(f"{name} {label} with LSE: {e_o}, {e_l}")
+    return e_o, e_l, int(empty.sum())
+
+
+def _check_lse(dev, res):
+    """K1 and K2 with ``return_lse`` against their plain versions at hd 64,
+    128 and 256, on the inputs a rank's slice of a sequence-split cache
+    gives them: a negative local prefix (rows before the slice see no
+    key), a chunk past the slice, and lengths 0 (nothing in the slice)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    heads = [(TINY_HEADS, None), (QWEN_HEADS, None)]
+    if _hd256_here():
+        heads.append((GEMMA_HEADS, GEMMA_CAP))
+    empties = [0, 0]
+    for (nh, kh, hd), cap in heads:
+        for qdt in (f32, bf16):
+            # prefixes local to a slice: before it, straddling its start,
+            # inside it, and past its end (total clipped by the slice)
+            q, k, v, kw = _prefill_case(4, 64, [-100, -10, 0, 480], dev,
+                                        cap=cap, qdt=qdt,
+                                        heads=(nh, kh, hd))
+            label = f"B=4 Sq=64 prefix=[-100,-10,0,480] q={str(qdt)[6:]} " \
+                f"H,K,hd={(nh, kh, hd)} cap={cap}"
+            got = flash_prefill(q, k, v, return_lse=True, **kw)
+            torch.cuda.synchronize()
+            e_o, e_l, n = _lse_errs("flash_prefill", got, flash_prefill_plain(
+                q, k, v, return_lse=True, **kw), qdt, label)
+            empties[0] += n
+            res["flash_prefill"]["lse_max_abs_err"] = max(
+                res["flash_prefill"].get("lse_max_abs_err", 0.0), e_l)
+            q, k, v, ln, kw = _decode_case(4, [0, 1, 300, 512], dev,
+                                           cap=cap, qdt=qdt,
+                                           heads=(nh, kh, hd))
+            label = f"B=4 length=[0,1,300,512] q={str(qdt)[6:]} " \
+                f"H,K,hd={(nh, kh, hd)} cap={cap}"
+            got = decode_attention(q, k, v, ln, return_lse=True, **kw)
+            torch.cuda.synchronize()
+            e_o, e_l, n = _lse_errs("decode_attention", got,
+                                    decode_attention_plain(
+                                        q, k, v, ln, return_lse=True, **kw),
+                                    qdt, label)
+            empties[1] += n
+            res["decode_attention"]["lse_max_abs_err"] = max(
+                res["decode_attention"].get("lse_max_abs_err", 0.0), e_l)
+    if not all(empties):
+        raise AssertionError(f"no empty rows were held: {empties}")
 
 
 def phase_kernels(dev) -> dict:
@@ -623,6 +720,11 @@ def phase_kernels(dev) -> dict:
                                                               **kw),
               qdt, f"B={B} length={length} window={window} cap={cap} "
               f"q={str(qdt)[6:]} H,K,hd={heads}")
+
+    if _lse_here():
+        _check_lse(dev, res)
+    else:
+        print("[kernels] LSE cases: this tree's K1 and K2 return no LSE")
 
     # the profiler reading that every device time below rests on
     q, k, v, ln, _ = _decode_case(4, lens, dev)
@@ -848,19 +950,19 @@ SCHED = [(0, 100), (100, 140)] + [(140 + i, 141 + i) for i in range(8)]
 
 
 def run_model(cfg, params, dev, toks, *, paged=False, verify_tail=False,
-              sched=SCHED):
+              sched=SCHED, **kw):
     """By default prefill 100 tokens, partial-prefill 40 more on the same
     cache, then 8 decode steps, all fed fixed tokens (so both devices see
     the same inputs); ``sched`` gives other (lo, hi) token ranges. With
     ``verify_tail`` one more 4-token chunk at 148. With ``paged`` the
     cache is a paged pool read through a shuffled block table and the
-    tail is a speculative verify chunk. Returns the logits of every call
+    tail is a speculative verify chunk. ``kw`` goes to ``apply_model``
+    (``cache_batch=1`` under a mesh). Returns the logits of every call
     and the cache."""
     sched = list(sched)
     tail = (148, 152)
     if verify_tail:
         sched.append(tail)
-    kw = {}
     if paged:
         cache = kvc.init_paged_pool(cfg, 1 + T // BS, BS, device=dev)
         table = np.random.RandomState(SEED).permutation(
@@ -2625,6 +2727,43 @@ def phase_train(dev, card: str) -> tuple:
 
 MESH_TOL = 1e-6                       # sharded vs unsharded, world size 1
 EP_TOL = 1e-5                         # EP vs routed, of the output's scale
+ARCH_MESH_TOL = 1e-5                  # [mesh] archs, of the logits' scale
+MESH_ARCHS = (RWKV, "hymba-1.5b", "deepseek-v3-671b")
+
+
+def _mesh_archs(dev, card, mesh):
+    """RWKV-6 3B (the time mix over heads, the channel mix over f),
+    Hymba-1.5B (Mamba over dI) and DeepSeek-V3's MLA layers at full width,
+    2 layers, on the sharded path against the unsharded port on the card:
+    prefill 100, partial 40, 8 decode steps."""
+    from repro_torch.launch import shard_rules as sr
+    from repro_torch.models.sharding import mesh_context
+    for name in MESH_ARCHS:
+        cfg = two_layer(name)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = init_params(cfg, gen, torch.float32, dev)
+        toks = np.random.RandomState(SEED).randint(0, cfg.vocab_size, 152)
+        want, _ = run_model(cfg, params, dev, toks)
+        with mesh_context(mesh):
+            shards = sr.shard_tree(params, mesh,
+                                   specs=sr.model_specs(cfg, mesh))
+            del params
+            got, cache = run_model(cfg, shards, dev, toks, cache_batch=1)
+        torch.cuda.synchronize()
+        scale = max(w.abs().max().item() for w in want)
+        err = _max_err(got, want) / scale
+        finite = all(torch.isfinite(g).all().item() for g in got)
+        shapes = {k: tuple(v.shape) for k, v in
+                  cache["stages"][0][0].items()}
+        print(f"[mesh] {cfg.name} ({cfg.num_layers} layers, d "
+              f"{cfg.d_model}) sharded on mesh (1, 1) vs unsharded, prefill "
+              f"100 + partial 40 + 8 decode steps: max |dlogits| "
+              f"{err:.3e} of the logits' scale {scale:.3f} (tolerance "
+              f"{ARCH_MESH_TOL:g}); cache {shapes} [{card}]")
+        if not (finite and err <= ARCH_MESH_TOL):
+            raise AssertionError(f"mesh {name}: {err}, finite {finite}")
+        del shards, cache, got, want
+        _free()
 
 
 def phase_mesh(dev, card: str):
@@ -2668,16 +2807,24 @@ def phase_mesh(dev, card: str):
         with mesh_context(mesh):
             shards = sr.shard_tree(params, mesh,
                                    specs=sr.model_specs(cfg, mesh))
-            (got, _), n_mesh = counted(lambda: run_model(cfg, shards, dev,
-                                                         toks))
+            (got, cache), n_mesh = counted(lambda: run_model(
+                cfg, shards, dev, toks, cache_batch=1))
         err = _max_err(got, want)
+        k = cache["stages"][0][0]["k"]
         print(f"[mesh] {cfg.name} sharded on mesh (1, 1) ('data', 'model') "
               f"over NCCL vs unsharded, prefill 100 + partial 40 + 8 decode "
-              f"steps: max |dlogits| {err:.3e} (tolerance {MESH_TOL:g}); "
-              f"K1, K2 launches {n_mesh} sharded, {n_plain} unsharded "
-              f"[{card}]")
+              f"steps on the reference's cache layout (k {tuple(k.shape)}: "
+              f"the sequence over {sr.seq_axes(mesh, 1)!r}, K1 / K2 with "
+              f"their LSE, merged): max |dlogits| {err:.3e} (tolerance "
+              f"{MESH_TOL:g}); K1, K2 launches {n_mesh} sharded, {n_plain} "
+              f"unsharded [{card}]")
         if not err <= MESH_TOL or n_mesh != n_plain or n_mesh != (4, 16):
             raise AssertionError(f"mesh forward: {err}, {n_mesh}, {n_plain}")
+        del params, shards, cache
+        _free()
+        _mesh_archs(dev, card, mesh)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = init_params(cfg, gen, torch.float32, dev)
 
         batch = _train_batch(cfg, dev)
         oc = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
@@ -2702,7 +2849,7 @@ def phase_mesh(dev, card: str):
         if not max(loss_err, gn_err, leaf_err) <= MESH_TOL:
             raise AssertionError(f"mesh train step: {loss_err}, {gn_err}, "
                                  f"{leaf_err}")
-        del params, shards, p1, p2
+        del params, p1, p2
         _free()
 
         qcfg = get_config(QWEN)
@@ -3247,6 +3394,13 @@ def main() -> int:
         phase_rwkv_kernel(dev)
         time_k6_bwd(dev, card)
         phase_serve(dev, card, RWKV, (rwkv6_scan,), "rwkv-serve")
+        # the whole TinyLlama-1.1B step through the tree's own launcher,
+        # then one more step profiled (the card's busy share)
+        args, cfg, params, _, _, _ = train_whole(
+            dev, card, TINYLLAMA, ["--arch", TINYLLAMA, "--steps", "6",
+                                   "--batch", "8", "--seq", "512",
+                                   "--microbatches", "2"])
+        _profiled_step(args, cfg, params, card, TINYLLAMA)
         return 0
     start = time.time()
 
@@ -3313,7 +3467,8 @@ def main() -> int:
                         "library_device_ms": r["library_device_ms"]})
         for extra in ("hd256", "tc_bound_ms", "needed_bound_ms",
                       "cold_device_ms", "fwd_save_device_ms",
-                      "with_saves_bound_ms"):
+                      "with_saves_bound_ms", "lse_max_abs_err",
+                      "lse_device_ms"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))

@@ -9,6 +9,9 @@ namespace teola {
 // Masked-score sentinel of the reference kernels (finite, so that
 // exp(NEG_INF - NEG_INF) = 1 and exp(NEG_INF - m) = 0 as in Pallas).
 constexpr float NEG_INF = -2.0e38f;
+// The log-sum-exp of a row that sees no key: -inf (a true infinity, not
+// the sentinel), so that its weight exp(lse - lse_total) in a merge is 0.
+#define NEG_INF_LSE (__uint_as_float(0xff800000u))
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {

@@ -24,18 +24,20 @@
 // q (B,H,hd), k/v (B,T,K,hd), o (B,H,hd), all contiguous; length (B,)
 // int32 on the device; ws: ws_floats fp32 scratch on the device
 // (split_kv_workspace(B, K, T, H/K, hd) of them). window <= 0: none;
-// cap <= 0: none.
+// cap <= 0: none. lse: null, or (B,H) fp32 on the device for each row's
+// log-sum-exp of its scores (-inf, with o = 0, at length 0: a rank's slice
+// of a sequence-split cache that holds none of the sequence's keys).
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, void* o,
                                        const int* length, float* ws,
                                        long long ws_floats, int B, int H,
                                        int K, int T, int hd, int q_dtype,
                                        int kv_dtype, float scale, int window,
-                                       float cap, void* stream) {
+                                       float cap, float* lse, void* stream) {
   if (B <= 0 || K <= 0 || H % K != 0 || T <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   TEOLA_DISPATCH(hd, q_dtype, kv_dtype, teola::split_kv_launch, q, k, v, o,
                  length, teola::DenseKeys{T}, T, ws, ws_floats, B, 1, H, K,
-                 scale, window, cap, static_cast<cudaStream_t>(stream));
+                 scale, window, cap, static_cast<cudaStream_t>(stream), lse);
 }

@@ -76,7 +76,8 @@ flash_prefill_fp32kv_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                      const TKV* __restrict__ v, TQ* __restrict__ o,
                      const int* __restrict__ prefix,
                      const int* __restrict__ total, int Sq, int H, int K,
-                     int T, float scale, int window, float cap) {
+                     int T, float scale, int window, float cap,
+                     float* __restrict__ lse) {
   using teola::NEG_INF;
   constexpr int LD = HD + 1;
   constexpr int LP = BK + 1;
@@ -107,6 +108,8 @@ flash_prefill_fp32kv_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   }
 
   const int qpos = pre + q0 + r;
+  // a negative prefix or total (a sequence slice) gives kv_hi <= 0: no
+  // tile; kv_lo is clamped to 0 before it is rounded down to a tile
   const int kv_hi = min(min(T, tot), pre + q_end);
   int kv_lo = 0;
   if (window > 0) kv_lo = max(0, pre + q0 - window + 1);
@@ -180,10 +183,15 @@ flash_prefill_fp32kv_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 
   if (q0 + r < Sq) {
     const float den = fmaxf(l, 1e-30f);
-    TQ* out = o + ((size_t)(b * Sq + q0 + r) * H + h) * HD;
+    // with an LSE output, a row that saw no key gives o = 0, lse = -inf
+    const bool empty = lse != nullptr && m <= NEG_INF;
+    const size_t row = (size_t)(b * Sq + q0 + r) * H + h;
+    if (lse != nullptr && c == 0)
+      lse[row] = empty ? NEG_INF_LSE : m + logf(l);
+    TQ* out = o + row * HD;
 #pragma unroll
     for (int i = 0; i < DPT; ++i)
-      out[c + 4 * i] = teola::from_f<TQ>(acc[i] / den);
+      out[c + 4 * i] = teola::from_f<TQ>(empty ? 0.f : acc[i] / den);
   }
 }
 
@@ -192,7 +200,8 @@ flash_prefill_fp32kv_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 template <int HD, typename TQ, typename TKV>
 int launch(const void* q, const void* k, const void* v, void* o,
            const int* prefix, const int* total, int B, int Sq, int H, int K,
-           int T, float scale, int window, float cap, cudaStream_t stream) {
+           int T, float scale, int window, float cap, cudaStream_t stream,
+           float* lse) {
   if constexpr (std::is_same<TKV, float>::value) {
     auto kern = fp32kv::flash_prefill_fp32kv_kernel<HD, TQ, TKV>;
     constexpr size_t smem = fp32kv::smem_bytes<HD>();
@@ -204,12 +213,12 @@ int launch(const void* q, const void* k, const void* v, void* o,
     kern<<<grid, fp32kv::NT, smem, stream>>>(
         static_cast<const TQ*>(q), static_cast<const TKV*>(k),
         static_cast<const TKV*>(v), static_cast<TQ*>(o), prefix, total, Sq,
-        H, K, T, scale, window, cap);
+        H, K, T, scale, window, cap, lse);
     return (int)cudaGetLastError();
   } else {
     return ft::flash_tile_launch<HD, TQ>(q, k, v, o, prefix, total,
                                          teola::DenseKeys{T}, B, Sq, H, K,
-                                         scale, window, cap, stream);
+                                         scale, window, cap, stream, lse);
   }
 }
 
@@ -217,17 +226,21 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 // q (B,Sq,H,hd), k/v (B,T,K,hd), o (B,Sq,H,hd), all contiguous; prefix
 // and total (B,) int32 on the device. window <= 0: none; cap <= 0: none.
+// lse: null, or (B,Sq,H) fp32 on the device for each query row's
+// log-sum-exp of its scores (after scale and cap; -inf, with o = 0, for a
+// row that sees no key). prefix may be negative and total below it (a
+// rank's slice of a sequence-split cache): rows then see no key.
 extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, void* o,
                                     const int* prefix, const int* total,
                                     int B, int Sq, int H, int K, int T,
                                     int hd, int q_dtype, int kv_dtype,
                                     float scale, int window, float cap,
-                                    void* stream) {
+                                    float* lse, void* stream) {
   if (B <= 0 || Sq <= 0 || K <= 0 || H % K != 0) {
     return (int)cudaErrorInvalidValue;
   }
   TEOLA_DISPATCH(hd, q_dtype, kv_dtype, launch, q, k, v, o, prefix, total,
                  B, Sq, H, K, T, scale, window, cap,
-                 static_cast<cudaStream_t>(stream));
+                 static_cast<cudaStream_t>(stream), lse);
 }

@@ -293,11 +293,19 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32],
 }
 
 // o / max(l, 1e-30) in TQ to the rows at row[0], row[1] (null: not
-// stored); l summed over the quad first.
+// stored); l summed over the quad first. With an LSE output (lse not
+// null: (B, Sq, H) fp32, row i of out's (B, Sq, H, hd) at lse[i]), each
+// stored row's log-sum-exp m + log(l) is written by the quad's first lane,
+// and a row that saw no key (m still NEG_INF) gives o = 0 and lse = -inf;
+// without one nothing else changes. The LSE row is found from the output
+// row's offset at the end, so the tile loop holds no pointer for it.
 template <int HD, typename TQ>
 __device__ __forceinline__ void finish_rows(const float (&o)[HD / 2],
                                             float (&l)[2],
-                                            TQ* const (&row)[2], int lane) {
+                                            const float (&m)[2],
+                                            TQ* const (&row)[2],
+                                            const TQ* out, float* lse,
+                                            int lane) {
   const int c = 2 * (lane & 3);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -305,10 +313,13 @@ __device__ __forceinline__ void finish_rows(const float (&o)[HD / 2],
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const float den = fmaxf(l[r], 1e-30f);
     if (row[r] == nullptr) continue;
+    const bool empty = lse != nullptr && m[r] <= NEG_INF;
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[(row[r] - out) / HD] = empty ? NEG_INF_LSE : m[r] + logf(l[r]);
 #pragma unroll
     for (int nb = 0; nb < HD / 8; ++nb)
-      st2(row[r] + 8 * nb + c, o[4 * nb + 2 * r] / den,
-          o[4 * nb + 2 * r + 1] / den);
+      st2(row[r] + 8 * nb + c, empty ? 0.f : o[4 * nb + 2 * r] / den,
+          empty ? 0.f : o[4 * nb + 2 * r + 1] / den);
   }
 }
 
@@ -535,7 +546,7 @@ flash_tile_kernel(const TQ* __restrict__ q,
                   const int* __restrict__ base,
                   const int* __restrict__ total, Keys keys, int Sq, int H,
                   int K, int GC, int NHC, float scale, int window,
-                  float cap) {
+                  float cap, float* __restrict__ lse) {
   // pieces of Q: three of an fp32 q, a bf16 q as it is
   constexpr int NQ = std::is_same<TQ, float>::value ? NP : 1;
   constexpr int TB = tile_bytes<HD>(), SB = stage_bytes<HD>();
@@ -631,18 +642,20 @@ flash_tile_kernel(const TQ* __restrict__ q,
     }
     __syncthreads();  // the stage is free for tile t + 2
   }
-  finish_rows<HD>(acc, l, orow, lane);
+  finish_rows<HD>(acc, l, m, orow, o, lse, lane);
 }
 
 // Launch flash_tile_kernel for q (B, Sq, H, hd) and bf16 K/V addressed by
-// keys; returns a cudaError_t. The shared-memory attribute is set once per
-// instantiation (a function-local static), so a launch under CUDA-graph
-// capture makes no other runtime call.
+// keys; returns a cudaError_t. lse: null, or (B, Sq, H) fp32 for each
+// row's log-sum-exp (finish_rows). The shared-memory attribute is set once
+// per instantiation (a function-local static), so a launch under
+// CUDA-graph capture makes no other runtime call.
 template <int HD, typename TQ, typename Keys>
 int flash_tile_launch(const void* q, const void* k, const void* v, void* o,
                       const int* base, const int* total, const Keys& keys,
                       int B, int Sq, int H, int K, float scale, int window,
-                      float cap, cudaStream_t stream) {
+                      float cap, cudaStream_t stream,
+                      float* lse = nullptr) {
   if ((reinterpret_cast<size_t>(k) | reinterpret_cast<size_t>(v)) & 15)
     return (int)cudaErrorMisalignedAddress;
   constexpr int ROWS = rows<HD>();
@@ -658,7 +671,7 @@ int flash_tile_launch(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, threads<HD>(), smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<TQ*>(o), base, total,
-      keys, Sq, H, K, GC, NHC, scale, window, cap);
+      keys, Sq, H, K, GC, NHC, scale, window, cap, lse);
   return (int)cudaGetLastError();
 }
 

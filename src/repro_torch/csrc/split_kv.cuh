@@ -35,7 +35,8 @@
 // from length and window, reads only theirs (the rest of the workspace is
 // uninitialised) and merges them: m* = max m_i, l = sum e^(m_i - m*) l_i,
 // o = sum e^(m_i - m*) acc_i / max(l, 1e-30), written in q's dtype in the
-// reference's (B, Sq, H, hd) layout.
+// reference's (B, Sq, H, hd) layout; on request each row's log-sum-exp
+// m* + log(l) (-inf, with o = 0, where no key is visible: a length of 0).
 //
 // What bounds it on the H100: bytes. Each K/V row (4*hd bytes in bf16) is
 // read once for all R rows: about 4*R*hd flops per 4*hd bytes, ~2*G flops
@@ -312,7 +313,7 @@ __global__ void __launch_bounds__(SKV_NT)
 split_kv_combine(const float* __restrict__ ws_acc,
                  const float* __restrict__ ws_ml,
                  const int* __restrict__ length, Keys keys, TQ* __restrict__ o,
-                 int Sq, int H, int K, int window) {
+                 int Sq, int H, int K, int window, float* __restrict__ lse) {
   constexpr int CH = SKV_CH, NT = SKV_NT;
   const int G = H / K, R = Sq * G;
   const int kvh = blockIdx.y, b = blockIdx.z;
@@ -348,6 +349,11 @@ split_kv_combine(const float* __restrict__ ws_acc,
     if (lane == 0) {
       Mst[r] = mx;
       Den[r] = fmaxf(l, 1e-30f);
+      // the row's log-sum-exp, by the CTA that holds its first element;
+      // -inf where no key is visible (l = 0: o is 0 there too)
+      if (lse != nullptr && r * HD >= e0)
+        lse[((size_t)b * Sq + r / G) * H + kvh * G + r % G] =
+            l > 0.f ? mx + logf(l) : NEG_INF_LSE;
     }
   }
   __syncthreads();
@@ -380,12 +386,15 @@ inline long long split_kv_workspace(int B, int K, int span, int R, int hd) {
 }
 
 // Both passes on one stream. ws holds ws_floats floats (at least
-// split_kv_workspace(...)); k / v must be 16-byte aligned.
+// split_kv_workspace(...)); k / v must be 16-byte aligned. lse: null, or
+// (B, Sq, H) fp32 for each query row's log-sum-exp (the combine pass's
+// merged m + log(l)).
 template <int HD, typename TQ, typename TKV, typename Keys>
 int split_kv_launch(const void* q, const void* k, const void* v, void* o,
                     const int* length, Keys keys, int span, float* ws,
                     long long ws_floats, int B, int Sq, int H, int K,
-                    float scale, int window, float cap, cudaStream_t stream) {
+                    float scale, int window, float cap, cudaStream_t stream,
+                    float* lse = nullptr) {
   const int R = Sq * (H / K), R4 = (R + 3) & ~3;
   if (R > SKV_MAXR || span <= 0) return (int)cudaErrorInvalidValue;
   if (ws_floats < split_kv_workspace(B, K, span, R, HD))
@@ -411,7 +420,8 @@ int split_kv_launch(const void* q, const void* k, const void* v, void* o,
   auto comb = split_kv_combine<HD, TQ, Keys>;
   comb<<<dim3((R * HD + SKV_CB - 1) / SKV_CB, K, B), SKV_NT,
          2 * SKV_MAXR * sizeof(float), stream>>>(
-      ws_acc, ws_ml, length, keys, static_cast<TQ*>(o), Sq, H, K, window);
+      ws_acc, ws_ml, length, keys, static_cast<TQ*>(o), Sq, H, K, window,
+      lse);
   return (int)cudaGetLastError();
 }
 

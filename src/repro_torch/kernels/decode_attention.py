@@ -29,6 +29,7 @@ import threading
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_prefill import masked_lse
 
 NEG_INF = -2.0e38
 MAX_GROUP = 16       # query heads per kv head the kernel holds
@@ -37,8 +38,9 @@ CHUNK = 64           # keys per split: SKV_CH in csrc/split_kv.cuh
 _count_lock = threading.Lock()
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # q, k, v, o, length, ws, ws_floats, B, H, K, T, hd, q_dtype, kv_dtype,
-# scale, window, cap, stream
-_ARGTYPES = [_P] * 6 + [ctypes.c_longlong] + [_I] * 7 + [_F, _I, _F, _P]
+# scale, window, cap, lse, stream
+_ARGTYPES = [_P] * 6 + [ctypes.c_longlong] + [_I] * 7 + [_F, _I, _F, _P,
+                                                          _P]
 
 
 def split_workspace(B, K, span, rows, hd, device):
@@ -55,10 +57,10 @@ def split_workspace(B, K, span, rows, hd, device):
 
 
 def decode_attention_plain(q, k, v, length, *, window=None, cap=None,
-                           scale=None):
+                           scale=None, return_lse=False):
     """q (B,H,hd); k,v (B,T,K,hd); length (B,) valid cache lengths (the
     new token's KV already written at length-1). Returns (B,H,hd) in q's
-    dtype."""
+    dtype, or (o, lse (B,H) float32) with ``return_lse``."""
     B, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
@@ -76,7 +78,12 @@ def decode_attention_plain(q, k, v, length, *, window=None, cap=None,
     s = torch.where(mask[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgt,btkh->bkgh", p, v.float())
-    return o.reshape(B, H, hd).to(q.dtype)
+    if not return_lse:
+        return o.reshape(B, H, hd).to(q.dtype)
+    seen = mask.any(-1)[:, None, None].expand(B, K, G)
+    o, lse = masked_lse(o.reshape(B, 1, H, hd), s[:, :, :, None], seen[
+        ..., None], q.dtype)
+    return o[:, 0], lse[:, 0]
 
 
 def live_splits(length, Sq, span, window, chunk=CHUNK):
@@ -137,12 +144,15 @@ def split_kv_plain(q, k, v, length, *, window=None, cap=None, scale=None,
     return o.to(q.device, q.dtype)
 
 
-def decode_attention(q, k, v, length, *, window=None, cap=None, scale=None):
+def decode_attention(q, k, v, length, *, window=None, cap=None, scale=None,
+                     return_lse=False):
     """q (B,H,hd) float32|bfloat16; k,v (B,T,K,hd) bfloat16|float32;
-    length (B,) int. Returns (B,H,hd) in q's dtype."""
+    length (B,) int. Returns (B,H,hd) in q's dtype, or (o, lse) with
+    ``return_lse``."""
     if build.plain_device(q):
         return decode_attention_plain(q, k, v, length, window=window,
-                                      cap=cap, scale=scale)
+                                      cap=cap, scale=scale,
+                                      return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     B, H, hd = q.shape
@@ -163,6 +173,8 @@ def decode_attention(q, k, v, length, *, window=None, cap=None, scale=None):
         (B,)).contiguous()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     ws = split_workspace(B, K, T, H // K, hd, q.device)
     launch = build.load("decode_attention", "decode_attention_launch",
                         _ARGTYPES)
@@ -171,11 +183,12 @@ def decode_attention(q, k, v, length, *, window=None, cap=None, scale=None):
         length.data_ptr(), ws.data_ptr(), ws.numel(), B, H, K, T, hd,
         build.dtype_code(q), build.dtype_code(k), float(scale),
         int(window or 0), float(cap or 0.0),
+        None if lse is None else lse.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check("decode_attention", err, "decode_attention")
     with _count_lock:       # engines launch from several threads
         decode_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0

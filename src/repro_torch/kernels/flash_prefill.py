@@ -21,6 +21,16 @@ keep fp32's accuracy where one does not.
 
 Unlike the reference, ``prefix_len`` (and ``total_len``) may be a (B,)
 tensor: the serving engine batches sequences at different positions.
+
+``return_lse=True`` also returns each query row's log-sum-exp of its
+scores (after scale and softcap; (B, Sq, H) float32, natural log), which
+the reference's Pallas kernel keeps internally as its running max and
+sum: a rank that holds a slice of a sequence-split cache attends over its
+slots and the ranks' partials merge by their LSEs
+(``models/sharding.py::merge_partials``). On such a slice ``prefix_len``
+is the chunk's position minus the slice's first slot and may be
+negative, and rows can see no key at all: with ``return_lse`` such a row
+gives o = 0 and lse = -inf (never NaN); without it nothing changes.
 """
 from __future__ import annotations
 
@@ -37,8 +47,8 @@ TILE = 64            # keys per K/V tile: BK in csrc/flash_tile.cuh
 _count_lock = threading.Lock()
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # q, k, v, o, prefix, total, B, Sq, H, K, T, hd, q_dtype, kv_dtype, scale,
-# window, cap, stream
-_ARGTYPES = [_P] * 6 + [_I] * 8 + [_F, _I, _F, _P]
+# window, cap, lse, stream
+_ARGTYPES = [_P] * 6 + [_I] * 8 + [_F, _I, _F, _P, _P]
 
 
 def _per_seq(x, B, device):
@@ -62,11 +72,12 @@ def _positions(B, Sq, T, prefix_len, total_len, window, device):
 
 
 def flash_prefill_plain(q, k, v, *, prefix_len=0, window=None, cap=None,
-                        scale=None, total_len=None):
+                        scale=None, total_len=None, return_lse=False):
     """Naive masked attention. q (B,Sq,H,hd); k,v (B,T,K,hd) with the
     chunk already written at [prefix_len, prefix_len+Sq); returns
-    (B,Sq,H,hd) in q's dtype. Computes in float32, or in float64 for a
-    float64 q (the tests' referee)."""
+    (B,Sq,H,hd) in q's dtype, and with ``return_lse`` the rows' LSE
+    (B,Sq,H) float32 (see the module's docstring). Computes in float32, or
+    in float64 for a float64 q (the tests' referee)."""
     B, Sq, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
@@ -81,7 +92,23 @@ def flash_prefill_plain(q, k, v, *, prefix_len=0, window=None, cap=None,
     s = torch.where(mask[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,btkh->bskgh", p, v.to(ct))
-    return o.reshape(B, Sq, H, hd).to(q.dtype)
+    o = o.reshape(B, Sq, H, hd)
+    if not return_lse:
+        return o.to(q.dtype)
+    return masked_lse(o, s, mask[:, None, None].any(-1).expand(
+        B, K, G, Sq), q.dtype)
+
+
+def masked_lse(o, s, seen, dtype):
+    """(o, lse) of rows whose masked scores are ``s`` (B,K,G,Sq,T) and
+    outputs ``o`` (B,Sq,H,hd): lse (B,Sq,H) float32 is the log-sum-exp of
+    each row's scores; a row that sees no key (``seen`` (B,K,G,Sq) false)
+    gets o = 0 and lse = -inf."""
+    B, Sq, H, hd = o.shape
+    lse = torch.where(seen, torch.logsumexp(s, dim=-1), float("-inf"))
+    lse = lse.permute(0, 3, 1, 2).reshape(B, Sq, H)
+    seen = seen.permute(0, 3, 1, 2).reshape(B, Sq, H, 1)
+    return torch.where(seen, o, 0).to(dtype), lse.float()
 
 
 def bf16_pieces(x, n):
@@ -152,16 +179,17 @@ def flash_prefill_split_plain(q, k, v, *, prefix_len=0, window=None,
 
 
 def flash_prefill(q, k, v, *, prefix_len=0, window=None, cap=None,
-                  scale=None, total_len=None):
+                  scale=None, total_len=None, return_lse=False):
     """q (B,Sq,H,hd) float32|bfloat16; k,v (B,T,K,hd) bfloat16|float32,
     the cache buffer with the chunk written at [prefix_len,
     prefix_len+Sq). prefix_len / total_len: int or (B,) tensor
     (total_len defaults to prefix_len + Sq). Returns (B,Sq,H,hd) in q's
-    dtype."""
+    dtype, or (o, lse) with ``return_lse``."""
     if build.plain_device(q):
         return flash_prefill_plain(q, k, v, prefix_len=prefix_len,
                                    window=window, cap=cap, scale=scale,
-                                   total_len=total_len)
+                                   total_len=total_len,
+                                   return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill: unsupported device {q.device}")
     B, Sq, H, hd = q.shape
@@ -182,17 +210,20 @@ def flash_prefill(q, k, v, *, prefix_len=0, window=None, cap=None,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     total = total.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     launch = build.load("flash_prefill", "flash_prefill_launch", _ARGTYPES)
     err = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         prefix.data_ptr(), total.data_ptr(), B, Sq, H, K, T, hd,
         build.dtype_code(q), build.dtype_code(k), float(scale),
         int(window or 0), float(cap or 0.0),
+        None if lse is None else lse.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check("flash_prefill", err, "flash_prefill")
     with _count_lock:       # engines launch from several threads
         flash_prefill.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_prefill.launches = 0

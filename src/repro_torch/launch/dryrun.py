@@ -151,8 +151,7 @@ def main(argv=None) -> int:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--q-block", type=int, default=512,
-                    help="accepted for the reference's CLI; the port's "
-                         "forward has no query-block loop")
+                    help="query-block size of the attention")
     ap.add_argument("--opt", default="",
                     help="comma-separated optflags (see launch/optflags.py)")
     ap.add_argument("--out", default="experiments/dryrun_torch")

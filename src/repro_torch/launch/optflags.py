@@ -19,6 +19,10 @@ through ``launch/shard_rules.py`` and ``models/sharding.py``:
   donate            — recorded in the dry run's meta (the reference
                       donates the step's buffers; the port's steps update
                       theirs in place).
+  causal_skip       — the no-cache forward's query-block loop skips the
+                      blocks above the diagonal
+                      (``models/attention.py::_gqa_causal_skip``), and the
+                      roofline counts the reference's halved FLOPs.
 
 Accepted and changing nothing in the port:
 
@@ -26,11 +30,6 @@ Accepted and changing nothing in the port:
                       paged attention through its Pallas kernels. The
                       port routes K3-K5 to its hand-written kernels
                       unconditionally.
-  causal_skip       — the reference's query-block loop skips the blocks
-                      above the diagonal. The port's no-cache forward has
-                      no query-block loop (``training/train_step.py``), so
-                      it computes full S^2 masked attention whatever the
-                      flag; the port's roofline counts that.
 """
 from __future__ import annotations
 

@@ -2,10 +2,11 @@
 of ``repro/launch/roofline_model.py``).
 
 The compute and memory terms come from the config and input shape,
-mirroring what the implemented program does: full S^2 masked attention
-(the port's no-cache forward has no query-block loop, so the
-``causal_skip`` flag changes nothing here either), absorbed-MLA score
-FLOPs at the kv_lora rank. The FLOP and byte terms do not depend on the
+mirroring what the implemented program does: full S^2 masked attention,
+or under the ``causal_skip`` flag the reference's count of the blocks on
+and below the diagonal (Skv / 2 + 256 keys per query), which the port's
+query-block loop computes (``models/attention.py::_gqa_causal_skip``);
+absorbed-MLA score FLOPs at the kv_lora rank. The FLOP and byte terms do not depend on the
 hardware; ``launch/mesh.py`` holds the H100's peaks that divide them.
 
 Not ported: the reference's HLO-text parsers (``collective_bytes_*``,
@@ -22,7 +23,8 @@ from repro_torch.configs.base import InputShape, ModelConfig
 
 def _attn_flops_per_layer(cfg: ModelConfig, spec, B, Sq, Skv):
     """Score+context matmul FLOPs for ONE layer (fwd), as implemented:
-    full Skv attended (masked), no causal block skipping."""
+    full Skv attended (masked), or under ``causal_skip`` the blocks on and
+    below the diagonal of full causal self-attention."""
     hd = cfg.resolved_head_dim
     H = cfg.num_heads
     if cfg.attention_kind == "mla":
@@ -39,8 +41,11 @@ def _attn_flops_per_layer(cfg: ModelConfig, spec, B, Sq, Skv):
         heads = cfg.d_model // s.head_dim
         # per-step state update + readout: ~4 * hd^2 per head per token
         return 4 * B * Sq * heads * s.head_dim * s.head_dim * 2
+    from repro_torch.launch import optflags
     win = spec.window
     eff_kv = min(Skv, win) if win else Skv
+    if optflags.has("causal_skip") and Sq == Skv and not win:
+        eff_kv = Skv * 0.5 + 256            # lower-triangular blocks only
     fl = 2 * B * H * Sq * eff_kv * hd * 2       # QK^T and PV
     if spec.kind == "hybrid":
         s = cfg.ssm

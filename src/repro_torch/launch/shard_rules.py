@@ -14,8 +14,10 @@ Specs are the port's spec type (``models/sharding.py``): tuples of None,
 an axis name, or a tuple of axis names, with the values of the
 reference's ``PartitionSpec`` for every param, optimizer and batch leaf.
 
-``cache_spec`` is the one intended deviation (its docstring says how and
-why). ``shard_tree`` cuts each rank's slices out of a full tree.
+``cache_spec`` gives the reference's cache layout (the sequence over
+'model'); its docstring says what the port does where the reference
+names one axis on two dims. ``shard_tree`` cuts each rank's slices out of
+a full tree.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import math
 import torch
 
 from repro_torch.launch import optflags
-from repro_torch.models.sharding import entry, local_slice
+from repro_torch.models.sharding import entry, entry_axes, local_slice
 
 # last-path-component name -> logical spec for the UNSTACKED param
 _RULES = {
@@ -202,10 +204,11 @@ def batch_axes(mesh):
 
 
 def head_parallel(cfg, mesh) -> bool:
-    """Whether a GQA layer computes its query heads split over 'model':
-    wq / wo split by whole heads there, and each rank's query heads read
-    a KV-head set the cache layout can hold (K % tp == 0, or tp % K ==
-    0). Otherwise every rank computes all heads."""
+    """Whether a GQA layer's no-cache forward (training, a prefill without
+    a cache) computes its query heads split over 'model': wq / wo split
+    by whole heads there, and each rank's query heads read a KV-head set
+    it can hold (K % tp == 0, or tp % K == 0). Otherwise every rank
+    computes all heads."""
     if "model" not in mesh.axis_names or optflags.has("flat_dp") or \
             optflags.has("tp2d") or cfg.attention_kind == "mla":
         return False
@@ -214,33 +217,59 @@ def head_parallel(cfg, mesh) -> bool:
     return H % tp == 0 and (K % tp == 0 or tp % K == 0)
 
 
-def cache_spec(name: str, shape, mesh, *, batch: int,
-               head_parallel: bool = False) -> tuple:
-    """Cache arrays have a leading stage-repeat dim; batch shards over
-    ``batch_axes`` when it divides, as in the reference.
+def batch_sharded(mesh, batch: int) -> bool:
+    """Whether a cache of ``batch`` sequences shards its batch over
+    ``batch_axes`` (the batch divides their size)."""
+    return batch % math.prod(mesh.shape[a] for a in batch_axes(mesh)) == 0
 
-    The deviation from the reference: the reference stores k / v with the
-    SEQUENCE over 'model' (its flash-decode layout) and leaves the
-    cross-rank softmax to GSPMD. The port stores the KV HEADS over 'model'
-    where the layer computes its query heads over 'model'
-    (``head_parallel``): K / tp heads per rank when tp divides K; when K
-    divides tp (K < tp, MQA) the one KV head the rank's query heads read,
-    shared by tp / K ranks; otherwise every head on every model rank.
-    Each rank then runs K1 and K2 unchanged at its local head counts, at
-    any world size, with no cross-rank log-sum-exp merge. Per device the
-    bytes equal the reference's where tp divides K, and are larger where
-    it does not (tp / K times for K < tp) and where the batch does not
-    divide over the batch axes (long_500k, B = 1). The recurrent states
-    (RWKV's, the Mamba branch's) and MLA's ckv / krope stay whole on each
-    model rank, because the port computes those layers whole on each."""
-    ba = batch_axes(mesh)
-    dp = math.prod(mesh.shape[a] for a in ba)
-    bspec = entry(ba) if batch % dp == 0 else None
+
+def seq_axes(mesh, batch: int):
+    """The spec entry of a cache's sequence dim: 'model' (the reference's
+    flash-decode layout), or ('data', 'model') when the batch does not
+    divide over the batch axes (long_500k, B = 1); None without those
+    axes."""
+    if batch_sharded(mesh, batch):
+        return "model" if "model" in mesh.axis_names else None
+    return entry(a for a in ("data", "model") if a in mesh.axis_names)
+
+
+_CACHE_LEAVES = ("k", "v", "ckv", "krope", "state", "ssm_h", "ssm_conv",
+                 "sx_tm", "sx_cm")
+
+
+def cache_spec(name: str, shape, mesh, *, batch: int) -> tuple:
+    """The reference's ``cache_spec``: cache arrays have a leading
+    stage-repeat dim; the batch shards over ``batch_axes`` where it
+    divides; k / v (R,B,T,K,hd) and MLA's ckv / krope (R,B,T,r) put the
+    sequence over ``seq_axes``; RWKV's state (R,B,H,dk,dv) its heads over
+    'model' where H divides; the Mamba branch's ssm_h (R,B,dI,N) its dI
+    over 'model'; ssm_conv and the token-shift rows are whole beyond the
+    batch; any other name whole.
+
+    Where the reference names one mesh axis on two dims, which a layout
+    cannot do: under ``flat_dp`` the batch axes include 'model', and when
+    the batch divides, the reference also puts 'model' on the sequence of
+    k / v / ckv / krope, on the state's heads and on ssm_h's dI. The port
+    keeps the batch's use of the axis and leaves the later dim whole
+    there (the batch is what ``data_spec`` shards the step's inputs by)."""
     parts = [None] * len(shape)
-    if len(shape) > 1:
-        parts[1] = bspec
-    if name in ("k", "v") and head_parallel:         # (R,B,T,K,hd)
-        parts[3] = "model"
+    if name not in _CACHE_LEAVES:
+        return tuple(parts)
+    bspec = entry(batch_axes(mesh)) if batch_sharded(mesh, batch) else None
+    parts[1] = bspec
+    axes = mesh.axis_names
+    if name in ("k", "v", "ckv", "krope"):              # (R,B,T,...)
+        parts[2] = seq_axes(mesh, batch)
+    elif name == "state":                               # (R,B,H,dk,dv)
+        if "model" in axes and shape[2] % mesh.shape["model"] == 0:
+            parts[2] = "model"
+    elif name == "ssm_h":                               # (R,B,dI,N)
+        if "model" in axes:
+            parts[2] = "model"
+    taken = set(entry_axes(bspec))
+    for i in range(2, len(parts)):
+        if taken & set(entry_axes(parts[i])):
+            parts[i] = None
     return tuple(parts)
 
 

@@ -6,8 +6,8 @@ Abstract inputs are meta tensors at ONE rank's local shapes (its slices
 by ``launch/shard_rules.py``): the step runs on them under
 ``mesh_context`` and ``kernels.build.shape_only``, computing shapes and
 issuing its collectives (counted by ``models/sharding.py``), with no
-memory and no arithmetic. The port's forward has no query-block loop, so
-``q_block`` is accepted and unused.
+memory and no arithmetic. ``q_block`` is every layer's query-block size,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -87,7 +87,6 @@ def build_case(cfg: ModelConfig, ishape: InputShape, mesh, *,
     """Returns (step_fn, args: tuple, meta: dict). step_fn(*args) is the
     step the dry run runs once on this rank's meta slices; ``pos`` is a
     Python int (the reference's traced scalar)."""
-    del q_block                                     # no query-block loop
     B, S = ishape.global_batch, ishape.seq_len
     stub = cfg.embed_stub is not None
 
@@ -97,7 +96,8 @@ def build_case(cfg: ModelConfig, ishape: InputShape, mesh, *,
         opt = init_opt_state(opt_cfg, params)
         nmb = num_microbatches(cfg, ishape, mesh)
         step = make_train_step(cfg, opt_cfg, num_microbatches=nmb,
-                               compute_dtype=torch.bfloat16, stub=stub)
+                               compute_dtype=torch.bfloat16, q_block=q_block,
+                               stub=stub)
         if stub:
             batch = {"embeds": _inputs(cfg, mesh, B, S, True),
                      "targets": _meta((B, S), torch.int32, mesh,
@@ -124,17 +124,20 @@ def build_case(cfg: ModelConfig, ishape: InputShape, mesh, *,
                 for i in range(S // chunk):
                     logits, cache = apply_model(
                         cfg, params, inputs[:, i * chunk:(i + 1) * chunk],
-                        cache, pos + i * chunk, logits_slice=1)
+                        cache, pos + i * chunk, logits_slice=1,
+                        q_block=q_block, cache_batch=B)
                 return logits, cache
         else:
             def prefill(params, inputs, cache, pos):
                 return apply_model(cfg, params, inputs, cache, pos,
-                                   logits_slice=1)
+                                   logits_slice=1, q_block=q_block,
+                                   cache_batch=B)
         inp = _inputs(cfg, mesh, B, S, stub)
         return prefill, (params, inp, cache, 0), {"donate": (2,)}
 
     # decode: ONE new token against a seq_len KV cache
     def decode(params, inputs, cache, pos):
-        return apply_model(cfg, params, inputs, cache, pos)
+        return apply_model(cfg, params, inputs, cache, pos, q_block=q_block,
+                           cache_batch=B)
     inp = _inputs(cfg, mesh, B, 1, stub)
     return decode, (params, inp, cache, S - 1), {"donate": (2,)}

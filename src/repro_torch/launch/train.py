@@ -10,8 +10,10 @@ device, default the card (``--device cpu`` runs the plain PyTorch
 versions of the kernels), eagerly: no ``torch.compile``, no graphs. The
 weights are random, drawn from a generator seeded with 0; the data is
 ``SyntheticLM``. The compute dtype is float32, as in the reference's
-launcher. Configurations whose modality frontend is stubbed train on
-one-hot embeddings of the tokens and need ``--reduced``.
+launcher, and so are its query blocks of 64 (each checkpointed: a
+layer's backward recomputes its attention scores block by block).
+Configurations whose modality frontend is stubbed train on one-hot
+embeddings of the tokens and need ``--reduced``.
 
 ``main(argv)`` returns 0; ``train(args, cfg, params)`` runs the loop on
 weights the caller built and returns each step's metrics, so that a
@@ -63,7 +65,7 @@ def make_step(args, cfg):
     """(train_step, AdamWConfig) with the launcher's settings."""
     oc = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=args.steps)
     return make_train_step(cfg, oc, num_microbatches=args.microbatches,
-                           compute_dtype=torch.float32,
+                           compute_dtype=torch.float32, q_block=64,
                            stub=cfg.embed_stub is not None), oc
 
 

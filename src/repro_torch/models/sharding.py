@@ -26,8 +26,11 @@ or a tuple of axis names (the values of the reference's
 ``PartitionSpec``, a one-name tuple written as the name). A dim of n
 elements split over a group of g ranks holds n/g elements per rank, the
 rank's block in mesh order (``launch/mesh.py``); where instead g is a
-multiple of n (the port's KV-head cache layout) each rank holds one
-element, the (index * n // g)-th.
+multiple of n (a KV head read by several ranks' query heads) each rank
+holds one element, the (index * n // g)-th.
+
+``merge_partials`` combines attention partials over a sequence-split
+cache (``launch/shard_rules.py::cache_spec``) by their log-sum-exps.
 
 Logical axes of ``logical_to_spec``:
   'batch'  -> all batch-ish mesh axes present: ('pod', 'data')
@@ -302,6 +305,25 @@ def all_to_all(x, axes):
     return x if _trivial(axes) else _AllToAll.apply(x, axes)
 
 
+def merge_partials(o, lse, axes):
+    """Attention over a sequence split across the group ``axes``, from
+    each rank's partial over its own keys: ``o`` (..., hd) normalised over
+    those keys and ``lse`` (...) float32 their log-sum-exp (-inf where the
+    rank holds none of a row's keys). The LSEs are all-gathered, each
+    rank weights its o by exp(lse - lse_total), and the weighted partials
+    are all-reduced: two collectives, both counted. Returns o's merge in
+    o's dtype (0 for a row that no rank's keys reach)."""
+    axes = entry_axes(axes)
+    if _trivial(axes) or not axes:
+        return o
+    lses = all_gather(lse[None], axes, 0)               # (n, ...)
+    m = lses.amax(0)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    total = torch.exp(lses - m).sum(0)
+    w = torch.where(total > 0, torch.exp(lse - m) / total, 0.0)
+    return all_reduce(o.float() * w[..., None], axes).to(o.dtype)
+
+
 def materialize(x, spec, keep=None, keep_entry="model"):
     """This rank's shard ``x`` of a leaf laid out by ``spec``, gathered
     over every sharded dim except ``keep``, which stays local where its
@@ -313,6 +335,24 @@ def materialize(x, spec, keep=None, keep_entry="model"):
             continue
         x = all_gather(x, e, d)
     return x
+
+
+def model_block(x, spec, dim, mesh):
+    """This rank's block over 'model' of dim ``dim`` of a leaf (rank i of
+    tp holds the i-th of tp equal blocks): its local shard where ``spec``
+    splits that dim over exactly 'model', else cut from the gathered leaf
+    (a replicated leaf, or one whose rule names another axis there). Every
+    other sharded dim is gathered."""
+    x = materialize(x, spec, keep=dim)
+    if spec[dim] == "model":
+        return x
+    return x.narrow(dim, *model_span(x.shape[dim], mesh))
+
+
+def model_span(n, mesh):
+    """(start, length) of this rank's 'model' block of a dim of n."""
+    s = dim_slice(n, mesh.shape["model"], mesh.index("model"))
+    return s.start, s.stop - s.start
 
 
 def materialize_tree(tree, specs):

@@ -23,6 +23,9 @@ import torch.nn.functional as F
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.models.common import (dense_init, draw_device,
                                        group_norm_heads, leaf_dtype)
+from repro_torch.models.sharding import (model_span, all_gather,
+                                         all_reduce, materialize,
+                                         model_block)
 
 
 def _token_shift(x, sx):
@@ -87,10 +90,12 @@ def rwkv_time_mix(cfg, p, x, state, sx, out_state=None):
     """x (B,S,d); state (B,H,hd,hd) fp32; sx (B,d) previous token.
     Returns (out, new_state, new_sx). The new state is written into
     ``out_state`` when given (which may be ``state``: the cache, in
-    place)."""
-    s = cfg.ssm
+    place). H is ``u``'s row count: given the heads of one rank
+    (``rwkv_time_mix_tp``'s local params) it computes those heads, and
+    ``out`` is that rank's partial sum through its rows of ``wo``."""
+    hd = cfg.ssm.head_dim
     B, S, d = x.shape
-    H, hd = d // s.head_dim, s.head_dim
+    H = p["u"].shape[0]
 
     prev, new_sx = _token_shift(x, sx.to(x.dtype))
     dx = prev - x
@@ -115,8 +120,42 @@ def rwkv_time_mix(cfg, p, x, state, sx, out_state=None):
     y, state = rwkv6_scan(r.float(), k.float(), v.float(), w,
                           p["u"].float(), state, out_state)
     y = group_norm_heads(y.to(x.dtype), p["gn_scale"], eps=64e-5)
-    out = (y.reshape(B, S, d) * g) @ p["wo"]
+    out = (y.reshape(B, S, H * hd) * g) @ p["wo"]
     return out, state, new_sx
+
+
+def rwkv_tp(cfg, mesh, state_spec=None) -> bool:
+    """Whether an RWKV layer computes its time mix over this rank's H / tp
+    heads: where a cache's state holds its heads over 'model'
+    (``state_spec``, ``shard_rules.cache_spec``), or, without a cache,
+    where H divides over 'model' and 'model' is no batch axis."""
+    from repro_torch.launch import optflags
+    if state_spec is not None:
+        return state_spec[2] == "model"
+    H = cfg.d_model // cfg.ssm.head_dim
+    return "model" in mesh.axis_names and not optflags.has("flat_dp") and \
+        H % mesh.shape["model"] == 0
+
+
+def rwkv_time_mix_tp(cfg, p, ps, x, state, sx, out_state, mesh):
+    """The time mix over this rank's H / tp heads (``rwkv_tp``): ``wr``,
+    ``wk``, ``wv`` column-parallel (their rule puts 'model' on the output
+    dim); ``wg``, which has no rule, and ``w_base``, ``u``, ``gn_scale``
+    cut to the local heads from their replicated leaves; ``w_w2`` gives
+    the local heads' decay; the mixes need every channel (they feed
+    projections from d), so ``mix_w2`` is gathered whole; ``wo``
+    row-parallel, then an all-reduce over 'model'. K6 runs at the local
+    head count on the local state (B, H/tp, hd, hd). ``p`` / ``ps``: this
+    rank's shards of the ``tm`` leaves and their specs."""
+    def blk(name, dim):
+        return model_block(p[name], ps[name], dim, mesh)
+    lp = {n: materialize(p[n], ps[n])
+          for n in ("mix_base", "mix_w1", "mix_w2", "w_w1")}
+    lp.update(wr=blk("wr", 1), wk=blk("wk", 1), wv=blk("wv", 1),
+              wg=blk("wg", 1), w_base=blk("w_base", 0), w_w2=blk("w_w2", 1),
+              u=blk("u", 0), gn_scale=blk("gn_scale", 0), wo=blk("wo", 0))
+    out, state, new_sx = rwkv_time_mix(cfg, lp, x, state, sx, out_state)
+    return all_reduce(out, "model"), state, new_sx
 
 
 def rwkv_channel_mix(cfg, p, x, sx):
@@ -127,6 +166,24 @@ def rwkv_channel_mix(cfg, p, x, sx):
     k = torch.square(F.relu(x_k @ p["wk"]))
     kv = k @ p["wv"]
     return torch.sigmoid(x_r @ p["wr"]) * kv, new_sx
+
+
+def rwkv_channel_mix_tp(cfg, p, ps, x, sx, mesh):
+    """The channel mix with f split over 'model': ``wk`` (d, f) column-
+    parallel as its rule has it; ``wv`` (f, d) is named like attention's
+    value projection, whose rule ('fsdp', 'tp') puts 'model' on d, not on
+    f, so it is gathered and cut to this rank's f rows, and the partial
+    k @ wv all-reduced; ``wr`` column-parallel, the receptance's local
+    channels all-gathered over 'model'."""
+    prev, new_sx = _token_shift(x, sx.to(x.dtype))
+    dx = prev - x
+    mix_k, mix_r = (materialize(p[n], ps[n]) for n in ("mix_k", "mix_r"))
+    x_k = x + dx * mix_k
+    x_r = x + dx * mix_r
+    k = torch.square(F.relu(x_k @ model_block(p["wk"], ps["wk"], 1, mesh)))
+    kv = all_reduce(k @ model_block(p["wv"], ps["wv"], 0, mesh), "model")
+    r = torch.sigmoid(x_r @ model_block(p["wr"], ps["wr"], 1, mesh))
+    return all_gather(r, "model", -1) * kv, new_sx
 
 
 # ===========================================================================
@@ -165,13 +222,17 @@ def init_mamba_params(generator, cfg, dtype, device, repeat: int):
     }
 
 
-def mamba_branch(cfg, p, x, h_state, conv_state):
+def mamba_branch(cfg, p, x, h_state, conv_state, reduce=None):
     """x (B,S,d); h_state (B,dI,N) fp32; conv_state (B,cw-1,dI).
-    Returns (out (B,S,d), h_state, conv_state), new tensors."""
+    Returns (out (B,S,d), h_state, conv_state), new tensors. dI is
+    ``D``'s length: given one rank's channels (``mamba_branch_tp``'s local
+    params) it computes those, ``reduce`` sums the partial x_c @ w_x over
+    the ranks, and ``out`` is the rank's partial sum through its rows of
+    ``out_proj``."""
     s = cfg.ssm
     B, S, d = x.shape
     N, cw = s.state_dim, s.conv_dim
-    dI = d
+    dI = p["D"].shape[-1]
 
     xz = x @ p["w_in"]
     x_in, z = xz[..., :dI], xz[..., dI:]
@@ -184,6 +245,8 @@ def mamba_branch(cfg, p, x, h_state, conv_state):
                  + p["conv_b"])
 
     xdb = x_c @ p["w_x"]
+    if reduce is not None:
+        xdb = reduce(xdb)
     R = s.dt_rank
     dt = F.softplus((xdb[..., :R] @ p["w_dt"]).float() + p["dt_bias"])
     Bc = xdb[..., R:R + N].float()                          # (B,S,N)
@@ -210,3 +273,42 @@ def mamba_branch(cfg, p, x, h_state, conv_state):
     y = y + p["D"] * xf
     out = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
     return out, h, new_conv_state
+
+
+def mamba_tp(cfg, mesh, h_spec=None) -> bool:
+    """Whether the Mamba branch computes this rank's dI / tp channels:
+    where a cache's ssm_h holds dI over 'model' (``h_spec``), or, without
+    a cache, where dI divides over 'model' and 'model' is no batch axis."""
+    from repro_torch.launch import optflags
+    if h_spec is not None:
+        return h_spec[2] == "model"
+    return "model" in mesh.axis_names and not optflags.has("flat_dp") and \
+        cfg.d_model % mesh.shape["model"] == 0
+
+
+def mamba_branch_tp(cfg, p, ps, x, h_state, conv_state, mesh):
+    """The Mamba branch over this rank's dI / tp channels (the reference's
+    ssm_h spec puts dI over 'model'): ``conv_w``, ``w_dt``, ``A_log`` as
+    their rules split them, ``D``, ``dt_bias``, ``conv_b`` (no rule) cut
+    from their replicated leaves; ``w_x``'s dI rows, whose partial product
+    (B, S, R + 2N) is small, all-reduced; ``out_proj`` (no rule) its local
+    rows, then an all-reduce. ``w_in`` (d, 2 dI) is [x_in | z]: its column
+    split over 'model' does not give a rank the same dI range of both
+    halves, so it is gathered and both halves cut. h_state: the local
+    (B, dI/tp, N); conv_state: the whole (B, cw-1, dI), its local channels
+    read and the new state all-gathered back."""
+    def blk(name, dim):
+        return model_block(p[name], ps[name], dim, mesh)
+    dI = cfg.d_model
+    start, n = model_span(dI, mesh)
+    w_in = materialize(p["w_in"], ps["w_in"])
+    lp = {"w_in": torch.cat([w_in[..., start:start + n],
+                             w_in[..., dI + start:dI + start + n]], -1),
+          "conv_w": blk("conv_w", 1), "conv_b": blk("conv_b", 0),
+          "w_x": blk("w_x", 0), "w_dt": blk("w_dt", 1),
+          "dt_bias": blk("dt_bias", 0), "A_log": blk("A_log", 0),
+          "D": blk("D", 0), "out_proj": blk("out_proj", 0)}
+    out, h, conv = mamba_branch(
+        cfg, lp, x, h_state, conv_state[..., start:start + n],
+        reduce=lambda t: all_reduce(t, "model"))
+    return all_reduce(out, "model"), h, all_gather(conv, "model", -1)

@@ -91,12 +91,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     sliding-window ring buffers). Under ``mesh`` (default: the active
     mesh, if any) each array is this rank's slice of the global batch's
     cache, by ``launch/shard_rules.py::cache_spec`` (on the meta device:
-    its shape only)."""
+    its shape only): the sequence over 'model' (or ('data', 'model') when
+    the batch does not divide), RWKV's state over heads and the Mamba
+    state over dI where the rules put 'model' there. The model is then
+    called with ``cache_batch=batch``."""
     from repro_torch.models.sharding import active_mesh, local_shape
     mesh = active_mesh() if mesh is None else mesh
     if mesh is not None:
-        from repro_torch.launch.shard_rules import cache_spec, head_parallel
-        hp = head_parallel(cfg, mesh)
+        from repro_torch.launch.shard_rules import cache_spec
     stages = []
     for st in cfg.stages:
         elems = []
@@ -105,8 +107,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                                       chunk)
             if mesh is not None:
                 shapes = {n: (local_shape(shape, cache_spec(
-                    n, shape, mesh, batch=batch, head_parallel=hp), mesh),
-                    dtype) for n, (shape, dtype) in shapes.items()}
+                    n, shape, mesh, batch=batch), mesh), dtype)
+                    for n, (shape, dtype) in shapes.items()}
             elems.append({name: torch.zeros(shape, dtype=dtype,
                                             device=device)
                           for name, (shape, dtype) in shapes.items()})
@@ -886,11 +888,47 @@ def batch_pos(pos, batch: int, device=None):
     return torch.broadcast_to(pos, (batch,))
 
 
-def write_linear(buf, chunk, pos):
+def _slice_targets(pos, B, S, first, T, total, ring):
+    """The chunk tokens that land in a rank's slice [first, first+T) of a
+    cache of ``total`` slots: (rows, local slots, chunk indices), index
+    tensors computed on the host (from host positions: a tensor ``pos`` is
+    read back once), so that meta tensors take them too. Linear: the
+    chunk's global start is clamped to [0, total - S] first, as the
+    reference's ``dynamic_update_slice`` clamps it on the whole cache;
+    ring: positions land at (pos + i) % total."""
+    p = batch_pos(pos, B, "cpu").long()
+    i = torch.arange(S)[None, :]
+    if ring:
+        g = (p[:, None] + i) % total
+    else:
+        g = torch.clamp(p, 0, total - S)[:, None] + i
+    local = g - first
+    keep = (local >= 0) & (local < T)
+    rows = torch.arange(B)[:, None].expand(B, S)
+    return rows[keep], local[keep], i.expand(B, S)[keep]
+
+
+def _write_slice(buf, chunk, pos, seq, ring):
+    first, total = seq
+    rows, slots, src = _slice_targets(pos, buf.shape[0], chunk.shape[1],
+                                      first, buf.shape[1], total, ring)
+    if rows.numel():
+        dev = buf.device
+        buf[rows.to(dev), slots.to(dev)] = \
+            chunk[rows.to(dev), src.to(dev)].to(buf.dtype)
+    return buf
+
+
+def write_linear(buf, chunk, pos, seq=None):
     """buf (B,T,...), chunk (B,S,...): write row b at [pos_b, pos_b+S),
     in place. Like ``jax.lax.dynamic_update_slice`` in the reference, the
     start is clamped to [0, T-S], so a chunk that would run past the end
-    lands at T-S instead."""
+    lands at T-S instead. With ``seq = (first, total)`` buf is a rank's
+    slice of a sequence-split cache, global slots [first, first+T) of
+    ``total``: the start is clamped on the global cache, then only the
+    tokens whose slots fall in the slice are written."""
+    if seq is not None:
+        return _write_slice(buf, chunk, pos, seq, ring=False)
     B, T = buf.shape[0], buf.shape[1]
     S = chunk.shape[1]
     pos = batch_pos(pos, B, buf.device).long()
@@ -901,9 +939,13 @@ def write_linear(buf, chunk, pos):
     return buf
 
 
-def write_ring(buf, chunk, pos):
+def write_ring(buf, chunk, pos, seq=None):
     """Ring-buffer write, in place: absolute positions pos_b..pos_b+S-1
-    land at (pos_b+i) % W. Used by sliding-window layers."""
+    land at (pos_b+i) % W. Used by sliding-window layers. With ``seq =
+    (first, total)``: a rank's slice of a ring of ``total`` slots (as
+    ``write_linear``)."""
+    if seq is not None:
+        return _write_slice(buf, chunk, pos, seq, ring=True)
     B, W = buf.shape[0], buf.shape[1]
     S = chunk.shape[1]
     pos = batch_pos(pos, B, buf.device).long()

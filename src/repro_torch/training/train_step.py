@@ -11,12 +11,14 @@ one's gradients are added into the leaves' ``.grad`` in float32, then
 divided by the count. The gradients' global norm is clipped to 1 before
 AdamW.
 
-The attention of a training forward is the plain masked attention
-(``models/attention.py::_gqa_core``), with no loop over query blocks: it
-keeps the whole (B, K, G, S, S) float32 scores and probabilities of every
-layer for the backward. For TinyLlama-1.1B at 4 x 512 tokens per
-microbatch that is 134 MB each per layer, about 6 GB over 22 layers. So
-the functions here take no ``q_block``, the reference's query-block size.
+The attention of a training forward is the plain masked attention over
+blocks of ``q_block`` queries (``models/attention.py::blockwise_over_q``,
+the reference's ``q_block``), each block checkpointed: the backward
+recomputes a block's scores, so that no layer keeps its whole (B, K, G,
+S, S) float32 scores and probabilities (for TinyLlama-1.1B at 4 x 512
+tokens per microbatch 134 MB each per layer unblocked, about 6 GB over 22
+layers). The ``causal_skip`` flag also skips the blocks above the
+diagonal.
 
 Under ``models.sharding.mesh_context(mesh)`` the step is the sharded
 one: params, moments and batch are this rank's slices
@@ -55,21 +57,23 @@ def _ce(logits, targets):
     return torch.mean(logz - gold)
 
 
-def next_token_loss(cfg, params, tokens, *, compute_dtype=torch.bfloat16):
+def next_token_loss(cfg, params, tokens, *, compute_dtype=torch.bfloat16,
+                    q_block=512):
     """tokens (B, S+1): inputs tokens[:, :-1] predict tokens[:, 1:].
     Returns (loss, ce)."""
     logits, _, aux = apply_model(cfg, _cast(params, compute_dtype),
-                                 tokens[:, :-1], return_aux=True)
+                                 tokens[:, :-1], return_aux=True,
+                                 q_block=q_block)
     ce = _ce(logits, tokens[:, 1:])
     return ce + AUX_COEF * aux, ce
 
 
 def embed_stub_loss(cfg, params, embeds, targets, *,
-                    compute_dtype=torch.bfloat16):
+                    compute_dtype=torch.bfloat16, q_block=512):
     """For modality-stub archs: inputs are precomputed frame/patch
     embeddings (B,S,d); targets (B,S) token ids. Returns (loss, ce)."""
     logits, _, aux = apply_model(cfg, _cast(params, compute_dtype), embeds,
-                                 return_aux=True)
+                                 return_aux=True, q_block=q_block)
     ce = _ce(logits, targets)
     return ce + AUX_COEF * aux, ce
 
@@ -97,7 +101,8 @@ def _sync_sharded(cfg, grads, mesh):
 
 
 def make_train_step(cfg, opt_cfg: AdamWConfig, *, num_microbatches: int = 1,
-                    compute_dtype=torch.bfloat16, stub: bool = False):
+                    compute_dtype=torch.bfloat16, q_block: int = 512,
+                    stub: bool = False):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics), params and moments updated in place. batch: {'tokens':
     (B,S)} or {'embeds': (B,S,d), 'targets': (B,S)} for stub archs, on the
@@ -107,9 +112,10 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, num_microbatches: int = 1,
     def loss_fn(params, mb):
         if stub:
             return embed_stub_loss(cfg, params, mb["embeds"], mb["targets"],
-                                   compute_dtype=compute_dtype)
+                                   compute_dtype=compute_dtype,
+                                   q_block=q_block)
         return next_token_loss(cfg, params, mb["tokens"],
-                               compute_dtype=compute_dtype)
+                               compute_dtype=compute_dtype, q_block=q_block)
 
     def train_step(params, opt_state, batch):
         mesh = active_mesh()

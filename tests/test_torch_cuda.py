@@ -67,6 +67,44 @@ def test_kernels_match_plain(cuda, qdt, hd, window, cap):
                                atol=tol)
 
 
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("window,cap", [(None, None), (100, 50.0)])
+def test_kernels_lse_match_plain(cuda, qdt, hd, window, cap):
+    """K1 and K2 with ``return_lse`` on a rank's slice of a sequence-split
+    cache (negative local prefixes, a chunk past the slice, length 0):
+    o as without it, each row's LSE within 1e-4, rows that see no key
+    exactly o = 0 and lse = -inf."""
+    B, Sq, H, K, T = 3, 96, 8, 2, 256
+    rs = np.random.RandomState(9)
+    q = _randn(rs, (B, Sq, H, hd), cuda, qdt)
+    k = _randn(rs, (B, T, K, hd), cuda, torch.bfloat16)
+    v = _randn(rs, (B, T, K, hd), cuda, torch.bfloat16)
+    tol = 2e-5 if qdt == torch.float32 else 2e-2
+    prefix = torch.tensor([-120, -30, 200], dtype=torch.int32, device=cuda)
+    length = torch.tensor([0, 1, 256], dtype=torch.int32, device=cuda)
+    for got, want in (
+            (tfp.flash_prefill(q, k, v, prefix_len=prefix, window=window,
+                               cap=cap, return_lse=True),
+             tfp.flash_prefill_plain(q, k, v, prefix_len=prefix,
+                                     window=window, cap=cap,
+                                     return_lse=True)),
+            (tdec.decode_attention(q[:, 0], k, v, length, window=window,
+                                   cap=cap, return_lse=True),
+             tdec.decode_attention_plain(q[:, 0], k, v, length,
+                                         window=window, cap=cap,
+                                         return_lse=True))):
+        torch.cuda.synchronize()
+        (o, lse), (o_p, lse_p) = got, want
+        empty = torch.isneginf(lse_p)
+        assert empty.any() and torch.equal(torch.isneginf(lse), empty)
+        assert not torch.isnan(o).any() and (o.float()[empty] == 0).all()
+        torch.testing.assert_close(o.float(), o_p.float(), rtol=tol,
+                                   atol=tol)
+        torch.testing.assert_close(lse[~empty], lse_p[~empty], rtol=0,
+                                   atol=1e-4)
+
+
 def test_model_on_card_matches_cpu(cuda):
     """tiny-core-llm prefill, partial prefill and decode on the card
     (through the kernels) against the CPU (plain attention), same weights.

@@ -26,9 +26,24 @@ Cases and tolerances:
     moves, and a gradient near 0 can take either sign (the zero-init norm
     leaves' gradients reach down there);
   - a reduced Gemma-2 prefill of 15 tokens plus one decode token at
-    (4, 2) against single-device logits, within 3e-3 (the reference's);
-  - a reduced TinyLlama with num_kv_heads = 1 at model = 2: each model
-    rank holds the one KV head (the replicated-KV layout), 3e-3;
+    (4, 2) against single-device logits, within 3e-3 (the reference's),
+    on the reference's cache layout (the sequence over 'model');
+  - a reduced TinyLlama with num_kv_heads = 1 at model = 2: the one KV
+    head whole on every rank, the sequence split, 3e-3;
+  - the sequence layout: a reduced TinyLlama prefilled in two chunks
+    whose prefix crosses a rank's slots, at B = 8 and at B = 1 (the
+    sequence over ('data', 'model')), a chunk past the cache's end (the
+    global clamp), Gemma-2's local layers on a ring that wraps, and
+    ``write_linear`` on each slice against the whole write, exact;
+  - reduced RWKV-6 (time mix over heads, channel mix over f), Hymba
+    (Mamba over dI) and DeepSeek-V3's MLA layers (over heads, the
+    compressed cache over the sequence) at (4, 2): prefill, partial
+    prefill and decode logits within 3e-3; one RWKV-6 train step as the
+    TinyLlama one below, in float64 (its K6 scan in float32, as always):
+    in float32 the reduced RWKV-6 step moves its moments by 4.9e-5 of
+    their scale when its params move by 1e-7 of theirs, so any other
+    order of its float32 sums, the tensor-parallel split's included,
+    exceeds the 1e-5 below; in float64 the split is held to it;
   - expert parallelism against ``routed_dense_plain`` at capacity factor
     16 (no drops): 4 experts over model = 2, 6 over model = 4 (padded to
     8), 8 under ep_all_axes + resident_weights: 3e-4 (the reference's);
@@ -115,17 +130,17 @@ def _rank_main(rank: int, store: str, out_dir: str):
     m42, m24 = make_local_mesh(4, 2), make_local_mesh(2, 4)
     res = {}
 
-    def params_of(cfg):
-        return init_params(cfg, torch.Generator().manual_seed(0),
-                           torch.float32, "cpu")
+    def params_of(cfg, dtype=torch.float32):
+        return init_params(cfg, torch.Generator().manual_seed(0), dtype,
+                           "cpu")
 
-    def train_case(cfg, mesh):
-        params = params_of(cfg)
+    def train_case(cfg, mesh, dtype=torch.float32):
+        params = params_of(cfg, dtype)
         rng = np.random.default_rng(1)
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 17)))
         opt_cfg = AdamWConfig(warmup_steps=1)
         step = tts.make_train_step(cfg, opt_cfg, num_microbatches=2,
-                                   compute_dtype=torch.float32)
+                                   compute_dtype=dtype)
         p1 = tree_map(torch.clone, params)
         p1, o1, m1 = step(p1, init_opt_state(opt_cfg, p1), {"tokens": toks})
         with mesh_context(mesh):
@@ -156,26 +171,61 @@ def _rank_main(rank: int, store: str, out_dir: str):
         tree_map(leaf, p1, p2, o1["m"], o2["m"], o1["v"], o2["v"], specs)
         return out
 
-    def decode_case(cfg, mesh):
+    def serve_case(cfg, mesh, sched, B=8, max_len=32, chunk=256):
+        """The calls ``sched`` ((lo, hi) token ranges, each at pos lo) on
+        one device and sharded; the largest logit difference of each
+        call, the largest logit, and the local shapes of the first
+        layer's cache leaves."""
         params = params_of(cfg)
         rng = np.random.default_rng(2)
-        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 16)))
-        cache = init_cache(cfg, 8, 32, device="cpu")
-        l1p, cache = apply_model(cfg, params, toks[:, :15], cache, 0)
-        l1d, _ = apply_model(cfg, params, toks[:, 15:16], cache, 15)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (B, sched[-1][1])))
+        cache = init_cache(cfg, B, max_len, chunk=chunk, device="cpu")
+        want = []
+        for lo, hi in sched:
+            logits, cache = apply_model(cfg, params, toks[:, lo:hi], cache,
+                                        lo)
+            want.append(sr.shard_batch(logits, mesh))
         with mesh_context(mesh):
             p2 = sr.shard_tree(params, mesh,
                                specs=sr.model_specs(cfg, mesh))
-            c2 = init_cache(cfg, 8, 32, device="cpu")
+            c2 = init_cache(cfg, B, max_len, chunk=chunk, device="cpu")
             t2 = sr.shard_batch(toks, mesh)
-            l2p, c2 = apply_model(cfg, p2, t2[:, :15], c2, 0)
-            l2d, _ = apply_model(cfg, p2, t2[:, 15:16], c2, 15)
-            kv = c2["stages"][0][0]["k"].shape
-        rows = sr.shard_batch(l1d, mesh)
-        return {"decode": float((l2d - rows).abs().max()),
-                "prefill": float((l2p - sr.shard_batch(l1p, mesh))
-                                 .abs().max()),
-                "scale": float(rows.abs().max()), "kv_shape": list(kv)}
+            got = []
+            for lo, hi in sched:
+                logits, c2 = apply_model(cfg, p2, t2[:, lo:hi], c2, lo,
+                                         cache_batch=B)
+                got.append(logits)
+        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        return {"errs": errs, "prefill": max(errs[:-1]), "decode": errs[-1],
+                "scale": max(float(w.abs().max()) for w in want),
+                "shapes": {k: list(v.shape) for k, v in
+                           c2["stages"][0][0].items()}}
+
+    def decode_case(cfg, mesh):
+        r = serve_case(cfg, mesh, [(0, 15), (15, 16)])
+        r["kv_shape"] = r["shapes"]["k"]
+        return r
+
+    def write_clamp_case(mesh):
+        """write_linear on each rank's sequence slice (over 'model', and
+        over ('data', 'model')) against the whole cache's write, for a
+        chunk that runs past the end (the reference's clamp to T - S) and
+        one inside; per-sequence positions."""
+        from repro_torch.serving.kv_cache import write_linear
+        buf = torch.arange(2 * 32 * 3, dtype=torch.float32).reshape(2, 32, 3)
+        chunk = -torch.arange(1, 2 * 8 * 3 + 1,
+                              dtype=torch.float32).reshape(2, 8, 3)
+        ok = True
+        for pos in (torch.tensor([28, 5]), 30):
+            whole = write_linear(buf.clone(), chunk, pos)
+            for axes in ("model", ("data", "model")):
+                g, i = mesh.group_size(axes), mesh.index(axes)
+                n = 32 // g
+                mine = write_linear(buf[:, i * n:(i + 1) * n].clone(), chunk,
+                                    pos, seq=(i * n, 32))
+                ok &= torch.equal(mine, whole[:, i * n:(i + 1) * n])
+        return ok
 
     def ep_case(E, mesh, flags, cf=16.0, seed=3, ref=None):
         optflags.set_flags(flags)
@@ -267,6 +317,33 @@ def _rank_main(rank: int, store: str, out_dir: str):
                                        m42)
     res["decode_mqa"] = decode_case(
         get_config("tinyllama-1.1b").reduced(num_kv_heads=1), m42)
+    two_chunks = [(0, 10), (10, 20), (20, 21)]   # the prefix crosses 16
+    tiny = get_config("tinyllama-1.1b").reduced()
+    res["seq_tinyllama"] = serve_case(tiny, m42, two_chunks)
+    res["seq_tinyllama_b1"] = serve_case(tiny, m42, two_chunks, B=1)
+    optflags.set_flags(["flat_dp"])   # the batch over every axis
+    res["seq_tinyllama_flat_dp"] = serve_case(tiny, m42, two_chunks)
+    optflags.set_flags([])
+    res["seq_clamp"] = serve_case(tiny, m42, [(0, 20), (20, 36),
+                                             (36, 37)])
+    res["write_clamp"] = write_clamp_case(m42)
+    # Gemma-2's local layers on a ring of 256 slots that wraps (window 64,
+    # chunks of up to 150 tokens, positions to 310)
+    res["ring_gemma2"] = serve_case(
+        get_config("gemma2-9b").reduced(), m42,
+        [(0, 150), (150, 300), (300, 301), (301, 302)], max_len=512,
+        chunk=150)
+    sched = [(0, 10), (10, 15), (15, 16)]
+    res["serve_rwkv"] = serve_case(get_config("rwkv6-3b").reduced(), m42,
+                                   sched)
+    res["serve_hymba"] = serve_case(get_config("hymba-1.5b").reduced(), m42,
+                                    sched)
+    dsv3 = get_config("deepseek-v3-671b").reduced()
+    mla = dataclasses.replace(dsv3, stages=(dataclasses.replace(
+        dsv3.stages[0], repeat=2),))             # its dense-FFN MLA layers
+    res["serve_mla"] = serve_case(mla, m42, sched)
+    res["train_rwkv"] = train_case(get_config("rwkv6-3b").reduced(), m42,
+                                   torch.float64)
     res["ep_4_model2"] = ep_case(4, m42, [])
     res["ep_6_model4"] = ep_case(6, m24, [])
     res["ep_8_all_axes"] = ep_case(8, m24, ["ep_all_axes",
@@ -352,14 +429,57 @@ def test_sharded_decode_matches_single_device(ranks):
     for r in ranks:
         t = r["decode_gemma2"]
         assert t["prefill"] <= 3e-3 and t["decode"] <= 3e-3, t
-        assert t["kv_shape"][3] == 2        # K = 4 heads over model = 2
+        # (R, B, T, K, hd): 8 sequences over data = 4, the 32 slots over
+        # model = 2, every KV head
+        assert t["kv_shape"][1:4] == [2, 16, 4], t
 
 
 def test_replicated_kv_head_mqa(ranks):
+    """num_kv_heads = 1 at model = 2: the cache splits the sequence, not
+    the heads, so every rank holds the one KV head of its slots."""
     for r in ranks:
         t = r["decode_mqa"]
         assert t["prefill"] <= 3e-3 and t["decode"] <= 3e-3, t
         assert t["kv_shape"][3] == 1        # the one KV head on each rank
+
+
+@pytest.mark.parametrize("case,slots", [
+    ("seq_tinyllama", 16), ("seq_tinyllama_b1", 4), ("seq_clamp", 16),
+    ("ring_gemma2", 128), ("seq_tinyllama_flat_dp", 32)])
+def test_sequence_layout_matches_single_device(ranks, case, slots):
+    """The reference's cache layout: the sequence over 'model' (16 of 32
+    slots), or over ('data', 'model') at B = 1 (4 of 32), the prefix of
+    the second chunk crossing a rank's boundary; a chunk clamped to the
+    cache's end (T - S, the reference's global clamp); Gemma-2's local
+    layers on a wrapping ring of 256 slots (128 per rank); under flat_dp,
+    where the batch takes 'model' and the sequence stays whole (32)."""
+    for r in ranks:
+        t = r[case]
+        assert max(t["errs"]) <= 3e-3, t
+        assert t["shapes"]["k"][2] == slots, t
+
+
+def test_sharded_write_linear_clamp(ranks):
+    for r in ranks:
+        assert r["write_clamp"], r["write_clamp"]
+
+
+@pytest.mark.parametrize("case,leaf,dim,local", [
+    ("serve_rwkv", "state", 2, 4), ("serve_hymba", "ssm_h", 2, 128),
+    ("serve_mla", "ckv", 2, 16)])
+def test_tensor_parallel_recurrent_and_mla(ranks, case, leaf, dim, local):
+    """Reduced RWKV-6 (8 heads), Hymba (dI 256) and DeepSeek-V3's MLA
+    layers at (4, 2): prefill, partial prefill and decode logits against
+    one device; the state holds H / tp heads, ssm_h dI / tp, ckv half
+    the sequence."""
+    for r in ranks:
+        t = r[case]
+        assert max(t["errs"]) <= 3e-3, t
+        assert t["shapes"][leaf][dim] == local, t
+
+
+def test_sharded_rwkv_train_step_matches_single_device(ranks):
+    _train_ok(ranks, "train_rwkv")
 
 
 @pytest.mark.parametrize("case,stored", [("ep_4_model2", 2),

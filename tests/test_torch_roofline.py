@@ -76,14 +76,27 @@ def test_analytic_bytes_decode_dominated_by_cache_and_weights():
     assert 0.9 * (w + kv) < b < 1.5 * (w + kv)
 
 
-def test_causal_skip_changes_nothing():
-    """The port's forward has no query-block loop, so the flag that skips
-    the reference's blocks above the diagonal leaves its count as is."""
+def test_causal_skip_term_equals_reference():
+    """Under ``causal_skip`` the port's query-block loop skips the blocks
+    above the diagonal, and its count is the reference's (Skv / 2 + 256
+    keys per query on full causal self-attention), for every config and
+    shape; it lowers the train count of a full-attention model."""
+    from repro.launch import optflags as joptflags
     cfg = get_config("tinyllama-1.1b")
     ish = INPUT_SHAPES["train_4k"]
     before = rm.analytic_flops(cfg, ish)
-    optflags.set_flags(["causal_skip"])
-    assert rm.analytic_flops(cfg, ish) == before
+    try:
+        optflags.set_flags(["causal_skip"])
+        joptflags.set_flags(["causal_skip"])
+        assert rm.analytic_flops(cfg, ish) < before
+        for arch in list_configs():
+            for name, ish in INPUT_SHAPES.items():
+                assert _close(rm.analytic_flops(get_config(arch), ish),
+                              jrm.analytic_flops(jget_config(arch),
+                                                 JSHAPES[name])), (arch,
+                                                                   name)
+    finally:
+        joptflags.set_flags([])
 
 
 def test_flag_parsing():

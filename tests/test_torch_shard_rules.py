@@ -2,16 +2,18 @@
 reference's (repro.launch.shard_rules) on every leaf of every registered
 configuration's params, on meshes (16, 16), (2, 16, 16), (4, 2), (2, 4)
 and (1, 1), with no flag and under each of resident_weights, flat_dp,
-tp2d and ep_all_axes; the same for ``data_spec`` and ``batch_axes``; the
-port's ``cache_spec`` against its documented rule; and the local slices
-that ``shard_tree`` cuts.
+tp2d and ep_all_axes; the same for ``data_spec``, ``batch_axes`` and
+``cache_spec``; and the local slices that ``shard_tree`` cuts.
 
 The reference's rules read only a mesh's ``axis_names`` and ``shape``
 (``_translate``), so they are called with a stub that has those two and
 no JAX device. A ``PartitionSpec`` is a tuple whose one-name tuples read
-as the name, which is the port's spec type."""
+as the name, which is the port's spec type; the reference's
+``cache_spec`` writes a one-axis batch as a one-name tuple, which the
+comparison reads so too."""
 import itertools
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -152,40 +154,79 @@ def test_logical_to_spec_matches_reference(flags):
     assert sharding.active_mesh() is None
 
 
+CACHE_LEAVES = {"k": 5, "v": 5, "ckv": 4, "krope": 4, "state": 5,
+                "ssm_h": 4, "ssm_conv": 4, "sx_tm": 3, "sx_cm": 3,
+                "other": 2}
+
+
+def _norm(spec):
+    """A spec with one-name tuples read as the name."""
+    return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e
+                 for e in spec)
+
+
+def _dedup(spec):
+    """The reference's spec with an axis the batch dim already names
+    dropped from each later dim: what the port's ``cache_spec`` gives
+    where the reference names one axis twice (its docstring)."""
+    taken = set(entry_axes(spec[1]) if len(spec) > 1 else ())
+    return tuple(None if i > 1 and taken & set(entry_axes(e)) else e
+                 for i, e in enumerate(spec))
+
+
 @pytest.mark.parametrize("flags", FLAGS, ids=lambda f: "+".join(f) or "none")
-def test_cache_spec_follows_documented_rule(flags):
-    """k / v: batch over the batch axes where it divides; KV heads over
-    'model' exactly where the layer is head-parallel (tp divides K or K
-    divides tp, whole query heads per rank, no flat_dp / tp2d); every
-    other cache array whole on each model rank."""
+def test_cache_spec_matches_reference(flags):
+    """The reference's ``cache_spec`` for every cache leaf name, on every
+    mesh, at batches that divide over the batch axes and that do not
+    (the sequence then over ('data', 'model')), and state head counts
+    that divide over 'model' and that do not. Where the reference names
+    one axis twice (flat_dp: the batch over ('data', 'model') and the
+    sequence, the state's heads or ssm_h's dI over 'model'), the port
+    leaves the later dim whole, and nowhere else does it differ."""
     _flags(flags)
+    twice = 0
     for shape, axes in MESHES:
-        mesh = abstract_mesh(shape, axes)
-        dp = 1
-        for a in sr.batch_axes(mesh):
-            dp *= mesh.shape[a]
-        tp = mesh.shape["model"]
-        for arch in ARCHS:
-            cfg = tget_config(arch)
-            hp = sr.head_parallel(cfg, mesh)
-            H, K = cfg.num_heads, cfg.num_kv_heads
-            assert hp == (cfg.attention_kind != "mla" and H % tp == 0 and
-                          (K % tp == 0 or tp % K == 0) and not any(
-                              f in flags for f in ("flat_dp", "tp2d")))
-            for B in (1, 8, 128):
-                bspec = tuple(sr.batch_axes(mesh)) if B % dp == 0 else ()
-                kv = sr.cache_spec("k", (2, B, 64, K, 64), mesh, batch=B,
-                                   head_parallel=hp)
-                assert entry_axes(kv[1]) == bspec
-                assert kv[3] == ("model" if hp else None)
-                assert kv[0] is kv[2] is kv[4] is None
-                for name, rank in (("state", 5), ("ssm_h", 4),
-                                   ("ckv", 4), ("sx_tm", 3)):
-                    cs = sr.cache_spec(name, (2, B) + (4,) * (rank - 2),
-                                       mesh, batch=B, head_parallel=hp)
-                    assert entry_axes(cs[1]) == bspec
-                    assert all(e is None for i, e in enumerate(cs)
-                               if i != 1)
+        stub, mesh = StubMesh(shape, axes), abstract_mesh(shape, axes)
+        for B, H in itertools.product((1, 8, 128, 512), (4, 40, 64)):
+            for name, rank in CACHE_LEAVES.items():
+                dims = (2, B, H) + (64,) * (rank - 3) if rank > 2 else (2, B)
+                want = _norm(jsr.cache_spec(name, dims, stub, batch=B))
+                got = sr.cache_spec(name, dims, mesh, batch=B)
+                assert got == _dedup(want), (shape, flags, name, B, H, got,
+                                             want)
+                twice += got != want
+    assert (twice > 0) == ("flat_dp" in flags), twice
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "musicgen-medium",
+                                  "deepseek-v3-671b", "rwkv6-3b",
+                                  "hymba-1.5b", "gemma2-9b"])
+def test_cache_local_bytes_match_reference(arch):
+    """Rank 0's cache at decode_32k and long_500k (batch 1: the sequence
+    over ('data', 'model')) on 16 x 16 and 2 x 16 x 16: every leaf's local
+    shape from ``init_cache`` under the mesh equals the reference cache
+    array's shape divided as the reference's ``cache_spec`` divides it."""
+    from repro.configs.base import INPUT_SHAPES
+    from repro.serving import kv_cache as jkvc
+    from repro_torch.serving.kv_cache import init_cache
+    for (shape, axes), ish in itertools.product(
+            MESHES[:2], ("decode_32k", "long_500k")):
+        stub, mesh = StubMesh(shape, axes), abstract_mesh(shape, axes)
+        B, S = INPUT_SHAPES[ish].global_batch, INPUT_SHAPES[ish].seq_len
+        cache = init_cache(tget_config(arch), B, S, chunk=1, device="meta",
+                           mesh=mesh)
+        cfg = get_config(arch)
+        for si, st in enumerate(cfg.stages):
+            for ei, spec in enumerate(st.pattern):
+                for name, (full, _) in jkvc.elem_cache_shape(
+                        cfg, spec, st.repeat, B, S, 1).items():
+                    want = tuple(
+                        n // (1 if e is None else int(np.prod(
+                            [stub.shape[a] for a in entry_axes(e)])))
+                        for n, e in zip(full, jsr.cache_spec(
+                            name, full, stub, batch=B)))
+                    got = tuple(cache["stages"][si][ei][name].shape)
+                    assert got == want, (arch, shape, ish, name, got, want)
 
 
 @pytest.mark.parametrize("shape,axes", MESHES[2:4])
