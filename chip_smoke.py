@@ -180,6 +180,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import tracing  # noqa: E402
 from repro_torch.bridge import tree_to  # noqa: E402
 from repro_torch.configs.base import InputShape, Stage, get_config  # noqa: E402,E501
 from repro_torch.core.apps import ALL_APPS, build_engines, naive_rag  # noqa: E402,E501
@@ -1039,11 +1040,6 @@ QUESTIONS = ["what is fact 3 about optics", "what is fact 7 about finance",
              "what is fact 12 about optics", "what is fact 30 about finance"]
 
 
-def _busy(engines) -> dict:
-    return {name: e.stats["busy_s"] for name, e in engines.items()
-            if "busy_s" in getattr(e, "stats", {})}
-
-
 # the wrapper that launches each hand-written kernel: K2's, K3's and K4's
 # split and combine passes are templates of csrc/split_kv.cuh, K1's and
 # K5's tensor-core kernel is the template of csrc/flash_tile.cuh, each told
@@ -1195,16 +1191,22 @@ def _warm_up(teola, docs):
 
 
 def _run_window(teola, docs):
-    """The 4 questions submitted together. Returns (window seconds,
-    contexts)."""
-    t0 = time.time()
-    ctxs = [teola.submit({"question": q, "docs": docs}) for q in QUESTIONS]
-    for c in ctxs:
-        if not c.done.wait(600):
-            raise TimeoutError("serve query timed out")
-    wall = time.time() - t0
+    """The 4 questions submitted together, with the port's tracer on.
+    Returns (window seconds, contexts, each engine's busy seconds in the
+    window: the union of its ``batch`` and ``llm.*`` spans)."""
+    tracing.enable()
+    try:
+        t0 = time.time()
+        ctxs = [teola.submit({"question": q, "docs": docs})
+                for q in QUESTIONS]
+        for c in ctxs:
+            if not c.done.wait(600):
+                raise TimeoutError("serve query timed out")
+        wall = time.time() - t0
+    finally:
+        tracing.disable()
     torch.cuda.synchronize()
-    return wall, ctxs
+    return wall, ctxs, tracing.busy_seconds(tracing.drain()["records"])
 
 
 def _check_answers(ctxs) -> list:
@@ -1234,7 +1236,7 @@ def _print_window(tag, warm, wall, ctxs, dec, busy, launches, card,
               f"{len(c.store['answer'].split())} words [{card}]")
     print(f"[{tag}] 4 queries in {wall:.3f} s; decode {dec} tokens, "
           f"{dec / wall:.1f} tokens/s over the window [{card}]")
-    print(f"[{tag}] engine busy seconds in the window (host clock): " +
+    print(f"[{tag}] engine busy seconds in the window (its spans): " +
           ", ".join(f"{k} {v:.3f}" for k, v in busy.items()))
     print(f"[{tag}] max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
@@ -1267,10 +1269,8 @@ def phase_serve(dev, card: str, model="tinyllama-1.1b",
             fn.launches = 0
         warm, warm_answer = _warm_up(teola, docs)
         dec0 = core.stats["decode_tokens"]
-        busy0 = _busy(engines)
-        wall, ctxs = _run_window(teola, docs)
+        wall, ctxs, busy = _run_window(teola, docs)
         launches = {fn.__name__: fn.launches for fn in kernels}
-        busy = {k: v - busy0[k] for k, v in _busy(engines).items()}
         stats = dict(core.stats)
         dec = stats["decode_tokens"] - dec0
         _profiled_query(teola, docs, card, kernels)
@@ -1315,10 +1315,8 @@ def phase_serve_paged(dev, card: str, dense_answers,
             fn.launches = 0
         warm, warm_answer = _warm_up(teola, docs)
         dec0 = core.stats["decode_tokens"]
-        busy0 = _busy(engines)
-        wall, ctxs = _run_window(teola, docs)
+        wall, ctxs, busy = _run_window(teola, docs)
         launches = {fn.__name__: fn.launches for fn in PAGED}
-        busy = {k: v - busy0[k] for k, v in _busy(engines).items()}
         dec = core.stats["decode_tokens"] - dec0
         spec = dict(core.spec.stats)
         radix = dict(core.radix.stats)
@@ -3029,10 +3027,8 @@ def phase_apps(dev, card: str):
                 fn.launches = 0
             warm, _ = _warm_up(teola, docs)
             dec0 = _decoded(engines)
-            busy0 = _busy(engines)
-            wall, ctxs = _run_window(teola, docs)
+            wall, ctxs, busy = _run_window(teola, docs)
             launches = {fn.__name__: fn.launches for fn in DENSE}
-            busy = {k: v - busy0[k] for k, v in _busy(engines).items()}
             dec = _decoded(engines) - dec0
             _profiled_query(teola, docs, card, DENSE)
         finally:

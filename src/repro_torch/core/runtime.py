@@ -57,6 +57,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+from repro_torch import tracing
 from repro_torch.core import primitives as P
 from repro_torch.core.engine_pool import (DisaggregatedEnginePool, EnginePool,
                                           estimate_tokens, replicas_of)
@@ -92,6 +93,9 @@ class QueryContext:
         self.error: Optional[Exception] = None
         # streaming: (parent_pid, child_pid) edges already released early
         self.early_edges: set = set()
+        # the id of the query's span (tracing on at submit), parent of its
+        # primitives' spans
+        self.span_id: Optional[int] = None
 
     @property
     def latency(self):
@@ -111,10 +115,45 @@ class NodeTask:
     t_arrival: float = field(default_factory=time.time)
     managed: bool = True     # False: baseline orchestrators drive progress
     stream: Optional[TokenStream] = None   # set for streaming decodes
+    # tracing on: when its scheduler handed it to the engine (ns) and the
+    # id of the ``batch`` span that held it
+    t_run: Optional[int] = None
+    batch: Optional[int] = None
 
     @property
     def depth(self):
         return self.prim.depth
+
+
+def _run_batch(executor, engine, batch: List[NodeTask]):
+    """One executor call of the lower tier. Tracing on, it is one
+    ``batch`` span (the engine, the op, the rows, the queries), the parent
+    of the engine's spans, and each task is stamped with the span's start
+    and id: the edge between its ``prim.wait`` and its ``prim.run``."""
+    if not tracing.enabled():
+        executor(engine, batch)
+        return
+    with tracing.span("batch", engine=getattr(engine, "name", "?"),
+                      op=batch[0].prim.op,
+                      rows=sum(t.prim.num_requests for t in batch),
+                      qids=sorted({t.ctx.qid for t in batch})) as sp:
+        for t in batch:
+            t.t_run, t.batch = sp.start, sp.id
+        executor(engine, batch)
+
+
+def _trace_prim(task: NodeTask, t0: float, t1: float):
+    """A completed primitive's ``prim.wait`` (dispatch to the start of its
+    batch) and ``prim.run`` (to completion): together its ``node_spans``
+    interval."""
+    if task.t_run is None:
+        return
+    prim, ctx = task.prim, task.ctx
+    kw = dict(parent=ctx.span_id, qid=ctx.qid, pid=prim.pid, op=prim.op,
+              engine=prim.engine)
+    tracing.record("prim.wait", tracing.ns(t0), task.t_run, **kw)
+    tracing.record("prim.run", task.t_run, tracing.ns(t1), batch=task.batch,
+                   **kw)
 
 
 def _fail_batch(batch: List[NodeTask], e: Exception):
@@ -314,6 +353,8 @@ class EngineScheduler(threading.Thread):
                                                 submit_prefill_task)
         for t in tasks:
             self.decode_submits.append((t.prim.num_requests, t.prim.op))
+            if tracing.enabled():
+                t.t_run = time.time_ns()
             submit = submit_prefill_task if t.prim.op in PREFILL_OPS \
                 else submit_decode_task
             try:
@@ -340,7 +381,7 @@ class EngineScheduler(threading.Thread):
             self.batches.append((sum(t.prim.num_requests for t in batch),
                                  batch[0].prim.op))
             try:
-                self.executor(self.engine, batch)
+                _run_batch(self.executor, self.engine, batch)
             except Exception as e:  # noqa: BLE001
                 _fail_batch(batch, e)
                 continue
@@ -601,6 +642,8 @@ class PooledEngineScheduler(threading.Thread):
                     _fail_batch([t], e)
                     continue
             tokens = estimate_tokens(t.prim)
+            if tracing.enabled():
+                t.t_run = time.time_ns()
             self.pool.note_decode_submitted(idx, tokens)
             self.routes.append((idx, t.prim.op, t.prim.num_requests,
                                 tokens))
@@ -746,7 +789,7 @@ class PooledEngineScheduler(threading.Thread):
         delay = self._hedge_delay(batch)
         if delay is None:
             t0 = time.time()
-            self.executor(worker.engine, batch)
+            _run_batch(self.executor, worker.engine, batch)
             if ov is not None:
                 from repro_torch.serving.overload import HEDGEABLE_OPS
                 if op in HEDGEABLE_OPS:
@@ -803,7 +846,7 @@ class PooledEngineScheduler(threading.Thread):
                                name=f"hedge:{batch[0].ctx.qid}:{op}")
         t0 = time.time()
         try:
-            self.executor(worker.engine, batch)
+            _run_batch(self.executor, worker.engine, batch)
         except Exception:
             primary_done.set()
             with lock:
@@ -969,6 +1012,7 @@ class Runtime:
                tenant: str = "default") -> QueryContext:
         ctx = QueryContext(graph, inputs, output_key, priority=priority,
                            slo=slo, tenant=tenant)
+        ctx.span_id = tracing.new_id()
         with self._lock:
             self.queries.append(ctx)
         if self.overload is not None:
@@ -1040,13 +1084,19 @@ class Runtime:
         if not task.managed:
             t0 = task.ctx.node_spans.get(task.prim.pid,
                                          (task.t_arrival, None))[0]
-            task.ctx.node_spans[task.prim.pid] = (t0, time.time())
+            t1 = time.time()
+            task.ctx.node_spans[task.prim.pid] = (t0, t1)
+            _trace_prim(task, t0, t1)
             return
-        self._complete_node(task.prim, task.ctx)
+        self._complete_node(task.prim, task.ctx, task)
 
-    def _complete_node(self, prim: Primitive, ctx: QueryContext):
+    def _complete_node(self, prim: Primitive, ctx: QueryContext,
+                       task: Optional[NodeTask] = None):
         t0 = ctx.node_spans.get(prim.pid, (time.time(), None))[0]
-        ctx.node_spans[prim.pid] = (t0, time.time())
+        t1 = time.time()
+        ctx.node_spans[prim.pid] = (t0, t1)
+        if task is not None:
+            _trace_prim(task, t0, t1)
         ready = []
         with ctx.lock:
             for cpid in prim.children:
@@ -1067,6 +1117,10 @@ class Runtime:
         if ctx.done.is_set():
             return
         ctx.t_done = time.time()
+        if ctx.span_id is not None:
+            tracing.record("query", tracing.ns(ctx.t_submit),
+                           tracing.ns(ctx.t_done), id=ctx.span_id,
+                           qid=ctx.qid)
         ctx.done.set()
         if self.overload is not None:
             # feed the admission controller's service-rate estimate

@@ -1,12 +1,12 @@
 """Embedding and reranking engines wrapping the port's encoder models."""
 from __future__ import annotations
 
-import time
 from typing import List
 
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.engines.tokenizer import HashTokenizer
 from repro_torch.models.encoder import (EMBEDDER, RERANKER, EncoderConfig,
                                         apply_encoder, init_encoder_params)
@@ -36,7 +36,7 @@ class _EncoderEngine:
         self.tok = HashTokenizer(cfg.vocab_size)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.params = init_encoder_params(cfg, gen, device=self.device)
-        self.stats = {"requests": 0, "calls": 0, "busy_s": 0.0}
+        self.stats = {"requests": 0, "calls": 0}
 
     def clone(self, idx: int = 1):
         """Pool replica: shared weights/tokenizer, fresh stats (encoders
@@ -48,11 +48,10 @@ class _EncoderEngine:
         c.device = self.device
         c.tok = self.tok
         c.params = self.params
-        c.stats = {"requests": 0, "calls": 0, "busy_s": 0.0}
+        c.stats = {"requests": 0, "calls": 0}
         return c
 
     def _encode_batch(self, texts: List[str]):
-        t0 = time.time()
         B = _bucket(len(texts), _BUCKETS_B)
         S = _bucket(max(1, max(len(t.split()) for t in texts)), _BUCKETS_S)
         toks = np.zeros((B, S), np.int32)
@@ -62,13 +61,12 @@ class _EncoderEngine:
             toks[i, :len(ids)] = ids
             mask[i, :len(ids)] = 1.0
         with torch.inference_mode():
-            out = apply_encoder(
+            out = tracing.readback(apply_encoder(
                 self.cfg, self.params,
                 torch.as_tensor(toks, device=self.device),
-                torch.as_tensor(mask, device=self.device)).cpu().numpy()
+                torch.as_tensor(mask, device=self.device)).cpu).numpy()
         self.stats["requests"] += len(texts)
         self.stats["calls"] += 1
-        self.stats["busy_s"] += time.time() - t0
         return out[:len(texts)]
 
 

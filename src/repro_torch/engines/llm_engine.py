@@ -54,6 +54,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.engines.decode_loop import (ContinuousDecodeLoop,
                                              DecodeLoopMixin, DecodeSeq,
@@ -191,7 +192,7 @@ class LLMEngine(DecodeLoopMixin):
 
     def _init_replica_state(self):
         self.stats = {"prefill_tokens": 0, "decode_tokens": 0, "calls": 0,
-                      "decode_iters": 0, "busy_s": 0.0,
+                      "decode_iters": 0,
                       "migrations_in": 0, "migrated_blocks": 0,
                       "migrate_s": 0.0}
         # decode_iteration (loop thread) and prefill/decode batches
@@ -406,7 +407,8 @@ class LLMEngine(DecodeLoopMixin):
             cache, pos = self._stack_states(pad_states)
             logits, cache = self._vstep(self._tensor(toks), cache, pos)
             self._unstack(cache, pad_states)
-        return torch.argmax(logits, dim=-1).cpu().numpy()[:len(states)]
+        return tracing.readback(
+            torch.argmax(logits, dim=-1).cpu).numpy()[:len(states)]
 
     def spec_rollback(self, st, sid=None):
         """Roll back rejected draft tokens: ``st.pos`` already stands at
@@ -607,23 +609,23 @@ class LLMEngine(DecodeLoopMixin):
         len(t)-1, so bucketed (right-padded) prefill matches unpadded
         prefill token-for-token."""
         self._fault("prefill")
-        t0 = time.time()
         B = _bucket(len(items), BUCKETS_B)
         S = _bucket(max(len(t) for _, t in items), BUCKETS_S)
-        toks, last_idx = self._prefill_toks(items, B, S)
-        if self.paged:
-            logits = self._paged_prefill(items, B, S, toks, last_idx)
-        else:
-            logits = self._dense_prefill_exec([s for s, _ in items], B,
-                                              toks, last_idx)
-        nxt = torch.argmax(logits, dim=-1).tolist()
+        with tracing.span("llm.prefill", engine=self.name, rows=len(items),
+                          B=B, S=S):
+            toks, last_idx = self._prefill_toks(items, B, S)
+            if self.paged:
+                logits = self._paged_prefill(items, B, S, toks, last_idx)
+            else:
+                logits = self._dense_prefill_exec([s for s, _ in items], B,
+                                                  toks, last_idx)
+            nxt = tracing.readback(torch.argmax(logits, dim=-1).tolist)
         for i, (s, t) in enumerate(items):
             s.pos += len(t)
             s.last_token = int(nxt[i])
         with self._stats_lock:
             self.stats["prefill_tokens"] += sum(len(t) for _, t in items)
             self.stats["calls"] += 1
-            self.stats["busy_s"] += time.time() - t0
 
     def prefill_chunked(self, items, chunk: Optional[int] = None):
         """Resumable chunked prefill: advance every item's prompt by at
@@ -704,28 +706,11 @@ class LLMEngine(DecodeLoopMixin):
                     on_chunk(i, outs[i][:m])
 
     def _decode_batch_base(self, items, on_chunk=None):
-        t0 = time.time()
         n_max = max(n for _, n in items)
         B = _bucket(len(items), BUCKETS_B)
-        states = [s for s, _ in items]
-        if self.paged:
-            outs = self._paged_decode_batch(items, B, n_max, on_chunk)
-        else:
-            pad_states = states + [self.new_state()
-                                   for _ in range(B - len(states))]
-            cache, pos = self._stack_states(pad_states)
-            cur = self._tensor([[s.last_token] for s in pad_states])
-            outs = [[] for _ in pad_states]
-            emitted = [0] * len(items)
-            for t in range(n_max):
-                logits, cache = self._step(cur, cache, pos)
-                nxt = torch.argmax(logits, dim=-1)
-                for i, tok in enumerate(nxt.tolist()):
-                    outs[i].append(int(tok))
-                cur = nxt[:, None]
-                pos = pos + 1
-                self._emit_chunks(items, outs, emitted, t, n_max, on_chunk)
-            self._unstack(cache, pad_states)
+        with tracing.span("llm.decode", engine=self.name, rows=len(items),
+                          B=B, steps=n_max):
+            outs = self._decode_steps(items, B, n_max, on_chunk)
         results = []
         for i, (s, n) in enumerate(items):
             s.pos += n          # overshoot steps (n_max - n) are discarded
@@ -734,8 +719,32 @@ class LLMEngine(DecodeLoopMixin):
         with self._stats_lock:
             self.stats["decode_tokens"] += sum(n for _, n in items)
             self.stats["calls"] += 1
-            self.stats["busy_s"] += time.time() - t0
+            self.stats["decode_iters"] += n_max
         return results
+
+    def _decode_steps(self, items, B, n_max, on_chunk):
+        """The ``n_max`` steps of a run-to-completion batch, each an
+        ``llm.step`` span; the tokens of every (padded) row."""
+        if self.paged:
+            return self._paged_decode_batch(items, B, n_max, on_chunk)
+        states = [s for s, _ in items]
+        pad_states = states + [self.new_state()
+                               for _ in range(B - len(states))]
+        cache, pos = self._stack_states(pad_states)
+        cur = self._tensor([[s.last_token] for s in pad_states])
+        outs = [[] for _ in pad_states]
+        emitted = [0] * len(items)
+        for t in range(n_max):
+            with tracing.span("llm.step", step=t):
+                logits, cache = self._step(cur, cache, pos)
+                nxt = torch.argmax(logits, dim=-1)
+                for i, tok in enumerate(tracing.readback(nxt.tolist)):
+                    outs[i].append(int(tok))
+            cur = nxt[:, None]
+            pos = pos + 1
+            self._emit_chunks(items, outs, emitted, t, n_max, on_chunk)
+        self._unstack(cache, pad_states)
+        return outs
 
     def _paged_decode_batch(self, items, B, n_max, on_chunk):
         """Run-to-completion decode over the paged pool: pre-allocate
@@ -761,10 +770,11 @@ class LLMEngine(DecodeLoopMixin):
             outs = [[] for _ in range(B)]
             emitted = [0] * len(items)
             for t in range(n_max):
-                logits = self._paged_step(cur, tables, pos)
-                nxt = torch.argmax(logits, dim=-1)
-                for i, tok in enumerate(nxt.tolist()):
-                    outs[i].append(int(tok))
+                with tracing.span("llm.step", step=t):
+                    logits = self._paged_step(cur, tables, pos)
+                    nxt = torch.argmax(logits, dim=-1)
+                    for i, tok in enumerate(tracing.readback(nxt.tolist)):
+                        outs[i].append(int(tok))
                 cur = nxt[:, None]
                 pos = torch.minimum(pos + 1, limit)
                 self._emit_chunks(items, outs, emitted, t, n_max, on_chunk)
@@ -909,7 +919,9 @@ class LLMEngine(DecodeLoopMixin):
         if seqs:
             self.decode_iteration(seqs)
         if pitems:
-            self._prefill_chunk_step(pitems)
+            with tracing.span("llm.prefill", engine=self.name,
+                              rows=len(pitems)):
+                self._prefill_chunk_step(pitems)
 
     def _prefill_chunk_step(self, pitems):
         """Land one bucketed prefill chunk per planned (job, n) pair and
@@ -920,7 +932,6 @@ class LLMEngine(DecodeLoopMixin):
         the job stays queued and the loop retries next pass. The decode
         loop must never sleep on prefill backpressure."""
         self._fault("prefill")
-        t0 = time.time()
         items = []                       # (job, chunk_token_list)
         if self.paged:
             if not self._paged_lock.acquire(blocking=False):
@@ -958,7 +969,7 @@ class LLMEngine(DecodeLoopMixin):
                 [(j.state, c) for j, c in items], B, S)
             logits = self._dense_prefill_exec(
                 [j.state for j, _ in items], B, toks, last_idx)
-        nxt = torch.argmax(logits, dim=-1).tolist()
+        nxt = tracing.readback(torch.argmax(logits, dim=-1).tolist)
         for i, (job, chunk) in enumerate(items):
             job.state.pos += len(chunk)
             job.state.last_token = int(nxt[i])
@@ -967,7 +978,6 @@ class LLMEngine(DecodeLoopMixin):
         with self._stats_lock:
             self.stats["prefill_tokens"] += sum(len(c) for _, c in items)
             self.stats["calls"] += 1
-            self.stats["busy_s"] += time.time() - t0
 
     def try_admit(self, seq: DecodeSeq) -> bool:
         """Block-level admission control (decode-loop hook): admit only
@@ -1103,7 +1113,6 @@ class LLMEngine(DecodeLoopMixin):
         """Prefill ``toks`` for a resuming sequence, bucketed-chunk by
         chunk. Paged mode bypasses free-block admission: the blocks come
         out of the sequence's own decode reservation."""
-        t0 = time.time()
         i = 0
         while i < len(toks):
             chunk = toks[i:i + BUCKETS_S[-1]]
@@ -1124,12 +1133,12 @@ class LLMEngine(DecodeLoopMixin):
             else:
                 logits = self._dense_prefill_exec([st], B, grid, last_idx)
             st.pos += len(chunk)
-            st.last_token = int(torch.argmax(logits[0]))
+            st.last_token = int(tracing.readback(
+                torch.argmax(logits[0]).item))
             self.meter.advance(sid, len(chunk))
         with self._stats_lock:
             self.stats["prefill_tokens"] += len(toks)
             self.stats["calls"] += 1
-            self.stats["busy_s"] += time.time() - t0
 
     def tenant_stats(self) -> dict:
         """Per-(tenant, class) scheduling stats (empty when SLO
@@ -1162,13 +1171,14 @@ class LLMEngine(DecodeLoopMixin):
         emitted tokens); the rest — and everything, with it disabled —
         take the single-token step."""
         self._fault("decode")
-        if self.slo is not None:
-            for r in seqs:
-                if getattr(r, "slo_preempted", False):
-                    self._slo_resume(r)
-        if self.spec is not None:
-            return self.spec.decode_iteration(seqs)
-        return self._decode_iteration_base(seqs)
+        with tracing.span("llm.step", engine=self.name, rows=len(seqs)):
+            if self.slo is not None:
+                for r in seqs:
+                    if getattr(r, "slo_preempted", False):
+                        self._slo_resume(r)
+            if self.spec is not None:
+                return self.spec.decode_iteration(seqs)
+            return self._decode_iteration_base(seqs)
 
     def _decode_iteration_base(self, seqs: List[DecodeSeq]):
         """One decode step for every resident sequence (called by the
@@ -1180,7 +1190,6 @@ class LLMEngine(DecodeLoopMixin):
         batch cache at all — every iteration scatters one token per
         sequence into the shared pool through a block table rebuilt from
         host-side lists."""
-        t0 = time.time()
         B = _bucket(len(seqs), BUCKETS_B)
         if self.paged:
             with self._paged_lock:
@@ -1209,7 +1218,7 @@ class LLMEngine(DecodeLoopMixin):
             logits, self._batch_cache = self._step(cur, self._batch_cache,
                                                    self._batch_pos)
             self._batch_pos = self._batch_pos + 1
-        nxt = torch.argmax(logits, dim=-1).tolist()
+        nxt = tracing.readback(torch.argmax(logits, dim=-1).tolist)
         for i, r in enumerate(seqs):
             tok = int(nxt[i])
             r.state.pos += 1
@@ -1219,7 +1228,6 @@ class LLMEngine(DecodeLoopMixin):
         with self._stats_lock:
             self.stats["decode_tokens"] += len(seqs)
             self.stats["decode_iters"] += 1
-            self.stats["busy_s"] += time.time() - t0
 
     # -- high-level ops used by the schedulers ------------------------------
     def _match_prefix_locked(self, toks):

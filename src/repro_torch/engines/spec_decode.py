@@ -43,7 +43,6 @@ model-free drafter.
 from __future__ import annotations
 
 import threading
-import time
 from typing import Dict, List, Optional
 
 
@@ -308,7 +307,6 @@ class SpeculativeDecoder:
         state advanced by n), fewer target forwards. ``on_chunk`` fires
         with cumulative token ids whenever a sequence grows."""
         eng = self.target
-        t0 = time.time()
         outs: List[List[int]] = [[] for _ in items]
         spec_tokens = 0              # fallback rounds count their own
         while True:
@@ -360,10 +358,9 @@ class SpeculativeDecoder:
                     on_chunk(i, outs[i][: items[i][1]])
         with eng._stats_lock:
             # fallback rounds went through _decode_batch_base, which
-            # already counted their tokens/busy time
+            # already counted their tokens
             eng.stats["decode_tokens"] += spec_tokens
             eng.stats["calls"] += 1
-            eng.stats["busy_s"] += time.time() - t0
         return outs
 
     # -- continuous decode loop path ----------------------------------------
@@ -392,7 +389,6 @@ class SpeculativeDecoder:
                 self.stats["tokens_emitted"] += len(rest)
         if not spec:
             return
-        t0 = time.time()
         chunks = []
         for r in spec:
             drafts = self._propose(r.sid, r.state.last_token)
@@ -412,7 +408,6 @@ class SpeculativeDecoder:
         with eng._stats_lock:
             eng.stats["decode_tokens"] += emitted
             eng.stats["decode_iters"] += 1
-            eng.stats["busy_s"] += time.time() - t0
 
 
 def attach_speculative(engines: Dict, *, target: str = "core_llm",

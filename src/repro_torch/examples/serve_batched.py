@@ -5,13 +5,16 @@ engines with a stream of batched concurrent requests.
   PYTHONPATH=src python -m repro_torch.examples.serve_batched [n_queries] \
       [--device cuda|cpu]
 
-Runs on the card unless ``--device cpu``.
+Runs on the card unless ``--device cpu``. The window runs with the port's
+tracer on (``repro_torch.tracing``): the core LLM's busy seconds are the
+union of its ``batch`` and ``llm.*`` spans.
 """
 import argparse
 import time
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core.apps import advanced_rag, build_engines
 from repro_torch.core.teola import Teola
 from repro_torch.training.data import doc_corpus
@@ -36,6 +39,7 @@ def main(n=6, device="cuda"):
         print(f"submitting {n} concurrent queries (Poisson arrivals)...")
         rng = np.random.default_rng(0)
         ctxs = []
+        tracing.enable()
         t0 = time.time()
         for i in range(n):
             q = {"question": QUESTIONS[i % len(QUESTIONS)], "docs": docs}
@@ -47,6 +51,8 @@ def main(n=6, device="cuda"):
             if c.error is not None:
                 raise c.error
         wall = time.time() - t0
+        tracing.disable()
+        spans = tracing.drain()["records"]
 
         lats = [c.latency for c in ctxs]
         print(f"\nserved {n} queries in {wall:.1f}s "
@@ -55,15 +61,17 @@ def main(n=6, device="cuda"):
               f"p50={np.percentile(lats, 50) * 1000:.0f}ms "
               f"max={np.max(lats) * 1000:.0f}ms")
         llm = engines["core_llm"]
+        busy = tracing.busy_seconds(spans).get(llm.name, 0.0)
         print(f"core LLM engine: {llm.stats['calls']} batched calls, "
               f"{llm.stats['prefill_tokens']} prefill tokens, "
               f"{llm.stats['decode_tokens']} decoded tokens, "
-              f"busy {llm.stats['busy_s']:.1f}s")
+              f"busy {busy:.1f}s in the window")
         sched = teola.runtime.scheds["core_llm"]
         sizes = [s for s, _ in sched.batches]
         print(f"LLM batch sizes formed by topology-aware batching: "
               f"avg={np.mean(sizes):.2f} max={max(sizes)}")
     finally:
+        tracing.disable()
         teola.shutdown()
 
 

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.models.common import act_fn, dense_init, leaf_dtype
 from repro_torch.models.sharding import (active_mesh, all_gather,
                                          all_reduce, all_to_all, entry,
@@ -99,7 +100,19 @@ def _expert(act, x, w_gate, w_up, w_down):
 def routed(cfg, p, x2d):
     """Exact top-k MoE without capacity (one device), computed on the
     selected (token, expert) pairs only. x2d (T, d) -> (out (T, d),
-    aux)."""
+    aux). Tracing on, one ``moe.dispatch`` span from the router product
+    to the combine (``T``, ``experts`` touched), its host sync a
+    ``readback`` inside it."""
+    sp, touched = tracing.start("moe.dispatch"), None
+    try:
+        out, aux, touched = _routed(cfg, p, x2d)
+    finally:
+        if sp is not None:
+            sp.end(T=x2d.shape[0], experts=touched)
+    return out, aux
+
+
+def _routed(cfg, p, x2d):
     mo = cfg.moe
     E, k = mo.num_experts, mo.top_k
     act = act_fn(cfg.act)
@@ -116,7 +129,7 @@ def routed(cfg, p, x2d):
     w_gate, w_up, w_down = (p[n].unbind(0)
                             for n in ("w_gate", "w_up", "w_down"))
     parts, lo = [], 0
-    for e, n in enumerate(counts.tolist()):              # the one sync
+    for e, n in enumerate(tracing.readback(counts.tolist)):  # the one sync
         if n:
             parts.append(_expert(act, xs[lo:lo + n], w_gate[e], w_up[e],
                                  w_down[e]))
@@ -126,7 +139,7 @@ def routed(cfg, p, x2d):
     out = torch.empty_like(ys).index_copy_(0, order, ys * g[:, None])
     out = out.view(T, k, d).sum(dim=1)
     aux = _balance(E, torch.softmax(logits, dim=-1), counts, flat.numel())
-    return out, aux
+    return out, aux, len(parts)
 
 
 def routed_dense_plain(cfg, p, x2d):
