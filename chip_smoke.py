@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --timing [--src DIR]
+    python3 chip_smoke.py --moe
 
 Phases, in order; any failure exits non-zero:
   1. toolchain: the card (nvidia-smi), torch / CUDA versions, nvcc, triton.
@@ -147,6 +148,13 @@ one step profiled) and prints no result line. With --src DIR
 trees' kernels are timed by the same code in one chip call, e.g. a parent
 commit unpacked by ``git archive`` under build/.
 
+--moe is not the smoke run either: it builds the grouped MoE expert kernel
+(csrc/moe_experts.cu) and, at Qwen1.5-MoE-A2.7B's expert shapes on one
+layer's fp32 weights, times it against its plain version and its byte
+bound at T = 1, 4 and 16 tokens, then both forms of the routed dispatch
+(grouped, sorted) at T = 1 to 512: the crossover of models/moe.py's
+GROUPED_MAX_ASSIGN. It prints no result line.
+
 Before the last line it prints a JSON line of per-kernel numbers and the
 card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -169,6 +177,7 @@ import threading
 import time
 
 TIMING = "--timing" in sys.argv
+MOE_TIMING = "--moe" in sys.argv
 if "--src" in sys.argv and not TIMING:
     sys.exit("chip_smoke: --src is accepted only with --timing")
 SRC = (os.path.abspath(sys.argv[sys.argv.index("--src") + 1])
@@ -1051,7 +1060,9 @@ _ANON_KERNELS = (("fp32kv::flash_prefill_fp32kv_kernel<", "flash_prefill"),
                   "chunk_prefill_attention"),
                  ("rwkv6_scan_kernel<", "rwkv6_scan"),
                  ("rwkv6_scan_bwd_kernel<", "rwkv6_scan_bwd"),
-                 ("rwkv6_decode_kernel<", "rwkv6_scan"))
+                 ("rwkv6_decode_kernel<", "rwkv6_scan"),
+                 ("moe_gate_up_kernel<", "moe_experts"),
+                 ("moe_down_kernel<", "moe_experts"))
 _TEMPLATE_KEYS = {
     "void teola::split_kv_": (("teola::DenseKeys", "decode_attention"),
                               ("teola::PagedKeys", "verify_attention"),
@@ -1705,11 +1716,13 @@ def _time_dispatch(card: str):
                 alone = moe.routed(cfg, p, x[:1])[0]
                 apart = (got[:1] - alone).abs().max().item() / \
                     max(1e-30, alone.abs().max().item())
+            path = "grouped" if T * cfg.moe.top_k <= \
+                moe.GROUPED_MAX_ASSIGN else "sorted, one host sync a layer"
             print(f"[moe] MoE dispatch at {what} (batch 4, {T} tokens, "
                   f"{experts} distinct experts of {cfg.moe.num_experts}), "
                   f"x {L} layers: selected pairs device "
                   f"{_fmt(dev_ms and dev_ms * L)}, wall {wall_ms * L:.3f} "
-                  f"ms (one host sync per layer); the reference's "
+                  f"ms ({path}); the reference's "
                   f"all-experts form device "
                   f"{_fmt(plain_ms and plain_ms * L)}; bound (the selected "
                   f"experts' fp32 weights at {HBM_BYTES_PER_S / 1e12:.2f} "
@@ -1721,6 +1734,88 @@ def _time_dispatch(card: str):
             if not err <= 1e-5:
                 raise AssertionError(f"MoE dispatch vs all experts: {err}")
     return timed
+
+
+def time_moe_experts(dev, card: str):
+    """``--moe``: the grouped expert kernel at Qwen1.5-MoE-A2.7B's expert
+    shapes (d 2048, f 1408, 60 experts, top 4, fp32), on one layer's
+    weights drawn as the model draws them. At T = 1, 4 and 16: the kernel
+    alone against its plain version (``cuda_ms``, ``device_ms``), within
+    2e-5 of the output's scale, and its bound, the touched experts' three
+    matrices at the card's memory rate. At T = 1 to 512: ``routed`` on
+    each path (grouped: the kernel; sorted: the per-expert products and
+    one host sync), ``cuda_ms`` per call (what a caller waits: the host's
+    launches and the sync included) and device ms. New tokens at every T;
+    the layer's expert weights (2.1 GB) do not fit the 50 MB L2."""
+    from repro_torch.kernels import moe_experts as tmx
+    from repro_torch.models import moe
+    build.build_all(("moe_experts",))
+    print("[moe-experts] ptxas:", " | ".join(
+        ln.strip() for ln in build.build_log["moe_experts"]["ptxas"]
+        .splitlines() if "registers" in ln or "spill" in ln))
+    cfg = get_config(QWEN)
+    mo, d = cfg.moe, cfg.d_model
+    E, k, f = mo.num_experts, mo.top_k, mo.d_expert
+    p = _layer0(moe.init_moe_params(torch.Generator(device=dev).manual_seed(
+        SEED), cfg, torch.float32, dev, 1))
+    weights = (p["w_gate"], p["w_up"], p["w_down"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    rows = {}
+    for T in (1, 4, 16, 64, 128, 256, 512):
+        x = torch.randn((T, d), generator=gen, device=dev)
+        with torch.inference_mode():
+            gates, idx, _ = moe.router_probs(cfg, p["router"], x)
+            order, offsets = moe._route(E, idx)
+            experts = int((offsets.diff() > 0).sum())
+            bound = experts * 3 * d * f * 4 / HBM_BYTES_PER_S * 1e3
+            if T <= 16:
+                args = (x, order, offsets, gates, *weights, cfg.act, k)
+                got = tmx.moe_experts(*args)
+                want = tmx.moe_experts_plain(*args)
+                err = ((got - want).abs().max() /
+                       want.abs().max()).item()
+                if not err <= 2e-5:
+                    raise AssertionError(f"moe_experts T={T}: {err}")
+                n0 = tmx.moe_experts.launches
+                ms = cuda_ms(lambda: tmx.moe_experts(*args))
+                dev_ms = device_ms(lambda: tmx.moe_experts(*args))
+                plain = cuda_ms(lambda: tmx.moe_experts_plain(*args))
+                plain_dev = device_ms(lambda: tmx.moe_experts_plain(*args))
+                calls = tmx.moe_experts.launches - n0
+                print(f"[moe-experts] kernel T={T} ({experts} experts "
+                      f"touched): ms {ms:.4f}, device {_fmt(dev_ms)}, per "
+                      f"call {dev_ms * 1e3:.2f} us, bound {bound:.4f} ms "
+                      f"(bytes), device/bound "
+                      f"{dev_ms / bound:.2f}; plain ms {plain:.4f}, plain "
+                      f"device {_fmt(plain_dev)}; relative max |dy| "
+                      f"{err:.2e}; {calls} wrapper calls timed [{card}]")
+                rows[T] = {"ms": ms, "device_ms": dev_ms, "bound_ms": bound,
+                           "plain_ms": plain, "plain_device_ms": plain_dev}
+            limit, paths = moe.GROUPED_MAX_ASSIGN, {}
+            try:
+                for path, lim in (("grouped", 1 << 30), ("sorted", 0)):
+                    moe.GROUPED_MAX_ASSIGN = lim
+                    paths[path] = (cuda_ms(lambda: moe.routed(cfg, p, x)),
+                                   device_ms(lambda: moe.routed(cfg, p, x)))
+            finally:
+                moe.GROUPED_MAX_ASSIGN = limit
+        (gw, gd), (sw, sd) = paths["grouped"], paths["sorted"]
+        print(f"[moe-crossover] T={T} T*k={T * k} ({experts} experts "
+              f"touched, bound {bound:.4f} ms): grouped ms {gw:.4f} device "
+              f"{_fmt(gd)}; sorted ms {sw:.4f} device {_fmt(sd)}; "
+              f"sorted/grouped {sw / gw:.2f} [{card}]")
+        rows.setdefault(T, {}).update(grouped_ms=gw, grouped_device_ms=gd,
+                                      sorted_ms=sw, sorted_device_ms=sd,
+                                      experts=experts)
+    L = cfg.num_layers
+    print(f"[moe-experts] batch-4 decode step x {L} layers: kernel device "
+          f"{rows[4]['device_ms'] * L:.3f} ms against the bound "
+          f"{rows[4]['bound_ms'] * L:.3f} ms; routed grouped "
+          f"{rows[4]['grouped_ms'] * L:.3f} ms a step (device "
+          f"{rows[4]['grouped_device_ms'] * L:.3f}), sorted "
+          f"{rows[4]['sorted_ms'] * L:.3f} ms (device "
+          f"{rows[4]['sorted_device_ms'] * L:.3f}) [{card}]")
+    print(json.dumps({"moe_experts": rows, "card": card}))
 
 
 def _paged_vs_dense(card: str, tag: str = "moe"):
@@ -3382,6 +3477,9 @@ def main() -> int:
         return 2
     dev = torch.device("cuda")
     card = card_line()
+    if MOE_TIMING:
+        time_moe_experts(dev, card)
+        return 0
     if TIMING:
         print(f"[timing] repro_torch from {SRC} [{card}]")
         build.build_all()

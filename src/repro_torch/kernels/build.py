@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("flash_prefill", "decode_attention", "paged_attention",
-           "chunk_prefill", "rwkv6_scan", "rwkv6_scan_bwd")
+           "chunk_prefill", "rwkv6_scan", "rwkv6_scan_bwd", "moe_experts")
 
 _lock = threading.Lock()
 _libs: dict = {}        # name -> loaded CDLL

@@ -6,13 +6,21 @@ The routed path computes the function of the reference's
 capacity, no dropped tokens, gates renormalised only under
 ``norm_topk_prob``. The reference computes it expert-major over EVERY
 expert for every token; ``routed`` computes only the selected (token,
-expert) pairs: the ``T*k`` assignments are sorted by expert on the device,
-each expert's three products run on its slice with ``torch.matmul``, and
-gate x output lands back in assignment order, summed over the ``k``
-choices of each token (in that order, so the result does not depend on
-atomics). Slicing needs the per-expert counts on the host: one
-device-to-host copy per MoE layer and call. These are plain products that
-the reference, too, computes outside any Pallas kernel.
+expert) pairs. The ``T*k`` assignments are sorted by expert on the device
+(``order``, and ``offsets`` where each expert's rows start); gate x output
+lands back in assignment order, summed over the ``k`` choices of each
+token (in that order, so the result does not depend on atomics). Two
+forms, chosen by shape, which the host knows without a sync:
+
+- grouped (no gradient needed and ``T*k <= GROUPED_MAX_ASSIGN``: decode
+  steps, verify chunks, small prefills): ``kernels/moe_experts.py``, a
+  hand-written kernel that reads the routing on the device, two launches
+  a layer and nothing read back;
+- sorted (training under autograd, large prefills): each touched
+  expert's three products on its slice with ``torch.matmul``, which needs
+  the per-expert counts on the host: one device-to-host copy per MoE layer
+  and call, amortised over milliseconds of products. These are plain
+  products that the reference, too, computes outside any Pallas kernel.
 
 ``routed_dense_plain`` keeps the reference's all-experts formulation. It
 is the tests' oracle and is not on any serving path.
@@ -36,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import tracing
+from repro_torch.kernels.moe_experts import moe_experts, sorted_products
 from repro_torch.models.common import act_fn, dense_init, leaf_dtype
 from repro_torch.models.sharding import (active_mesh, all_gather,
                                          all_reduce, all_to_all, entry,
@@ -93,53 +102,69 @@ def aux_load_balance_loss(cfg, logits, idx):
     return _balance(E, torch.softmax(logits, dim=-1), counts, idx.numel())
 
 
-def _expert(act, x, w_gate, w_up, w_down):
-    return (act(x @ w_gate) * (x @ w_up)) @ w_down
+# T * top_k at or below which a call that needs no gradient takes the
+# grouped kernel. On the H100 at Qwen1.5-MoE's shapes the grouped path is
+# faster than the sorted one up to here both per call and in device time;
+# at 2048 it is still faster per call but takes 1.3x the device time
+# (PERF.md, the crossover table)
+GROUPED_MAX_ASSIGN = 1024
 
 
 def routed(cfg, p, x2d):
     """Exact top-k MoE without capacity (one device), computed on the
     selected (token, expert) pairs only. x2d (T, d) -> (out (T, d),
     aux). Tracing on, one ``moe.dispatch`` span from the router product
-    to the combine (``T``, ``experts`` touched), its host sync a
-    ``readback`` inside it."""
-    sp, touched = tracing.start("moe.dispatch"), None
+    to the combine (``T``, ``path`` "grouped" or "sorted"; on the sorted
+    path also ``experts`` touched, and its host sync a ``readback`` inside
+    it)."""
+    path = "grouped" if _grouped(cfg, p, x2d) else "sorted"
+    sp, attrs = tracing.start("moe.dispatch"), {}
     try:
-        out, aux, touched = _routed(cfg, p, x2d)
+        out, aux, attrs = _routed(cfg, p, x2d, path)
     finally:
         if sp is not None:
-            sp.end(T=x2d.shape[0], experts=touched)
+            sp.end(T=x2d.shape[0], path=path, **attrs)
     return out, aux
 
 
-def _routed(cfg, p, x2d):
+def _grouped(cfg, p, x2d) -> bool:
+    if x2d.shape[0] * cfg.moe.top_k > GROUPED_MAX_ASSIGN:
+        return False
+    return not (torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x2d, p["router"], p["w_gate"], p["w_up"],
+                                  p["w_down"])))
+
+
+def _route(E, idx):
+    """The ``T*k`` assignments sorted by expert on the device: (order, the
+    stable argsort of the flat experts; offsets (E+1,), where each
+    expert's rows of ``order`` start)."""
+    experts, order = torch.sort(idx.reshape(-1), stable=True)
+    offsets = torch.searchsorted(
+        experts, torch.arange(E + 1, device=idx.device))
+    return order, offsets
+
+
+def _routed(cfg, p, x2d, path):
     mo = cfg.moe
     E, k = mo.num_experts, mo.top_k
-    act = act_fn(cfg.act)
     gates, idx, logits = router_probs(cfg, p["router"], x2d)
     T, d = x2d.shape
-    flat = idx.reshape(-1)                               # (T*k,)
-    order = torch.argsort(flat, stable=True)             # expert-major
-    counts = torch.bincount(flat, minlength=E)
-    tok = order // k                                     # token of each
-    xs = x2d[tok]                                        # (T*k, d)
-    # the expert weights are unbound once, so that under autograd their
-    # gradients are stacked once rather than each expert's index
-    # materialising a zero-filled copy of all E
-    w_gate, w_up, w_down = (p[n].unbind(0)
-                            for n in ("w_gate", "w_up", "w_down"))
-    parts, lo = [], 0
-    for e, n in enumerate(tracing.readback(counts.tolist)):  # the one sync
-        if n:
-            parts.append(_expert(act, xs[lo:lo + n], w_gate[e], w_up[e],
-                                 w_down[e]))
-        lo += n
-    ys = torch.cat(parts)
-    g = gates.reshape(-1)[order].to(ys.dtype)
-    out = torch.empty_like(ys).index_copy_(0, order, ys * g[:, None])
-    out = out.view(T, k, d).sum(dim=1)
-    aux = _balance(E, torch.softmax(logits, dim=-1), counts, flat.numel())
-    return out, aux, len(parts)
+    order, offsets = _route(E, idx)
+    counts = offsets.diff()
+    weights = (p["w_gate"], p["w_up"], p["w_down"])
+    if path == "grouped":
+        ys, attrs = moe_experts(x2d, order, offsets, gates, *weights,
+                                cfg.act, k), {}
+    else:
+        ys, touched = sorted_products(
+            act_fn(cfg.act), x2d, order,
+            tracing.readback(counts.tolist),             # the one sync
+            gates, *weights, k)
+        attrs = {"experts": touched}
+    out = ys.view(T, k, d).sum(dim=1)
+    aux = _balance(E, torch.softmax(logits, dim=-1), counts, T * k)
+    return out, aux, attrs
 
 
 def routed_dense_plain(cfg, p, x2d):

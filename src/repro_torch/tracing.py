@@ -30,7 +30,7 @@ The spans, and the readers they are for (PERF.md section 3):
     llm.prefill   LLMEngine's prefill forward (stacking, padding, steps)
     llm.decode    a run-to-completion decode batch
     llm.step      one decode step (also one continuous-loop iteration)
-    moe.dispatch  models/moe.py::routed, router product to combine
+    moe.dispatch  models/moe.py::routed, router product to combine (path)
     readback      one device-to-host read on the serving path
 """
 from __future__ import annotations

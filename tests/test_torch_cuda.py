@@ -1034,12 +1034,15 @@ def test_reclaim_replica_on_a_card_pool_with_live_sequences(cuda):
 # the other architectures: MoE dispatch, MLA paged, reduced engines
 
 def test_moe_dispatch_on_card_matches_all_experts(cuda):
-    """The selected-pairs dispatch against the reference's all-experts
-    formulation (``routed_dense_plain``) on the card, at Qwen1.5-MoE's
-    router (60 experts, top 4) and a narrow width, 64 tokens; the same
-    routing on both sides (one router call each on the same inputs).
-    Outputs at 1e-5 of their scale, the aux loss at 1e-5."""
+    """Both forms of the selected-pairs dispatch (the grouped kernel, and
+    the sorted per-expert products with their host sync) against the
+    reference's all-experts formulation (``routed_dense_plain``) on the
+    card, at Qwen1.5-MoE's router (60 experts, top 4) and a narrow width,
+    4 and 64 tokens; the same routing on both sides (one router call each
+    on the same inputs). Outputs at 1e-5 of their scale, the aux loss at
+    1e-5; the grouped form launches the kernel once a call."""
     import dataclasses
+    from repro_torch.kernels import moe_experts as tmx
     from repro_torch.models import moe
     base = get_config("qwen2-moe-a2.7b")
     cfg = dataclasses.replace(base, d_model=256, moe=dataclasses.replace(
@@ -1048,18 +1051,115 @@ def test_moe_dispatch_on_card_matches_all_experts(cuda):
                             cfg, torch.float32, cuda, 1)
     p = {k: (v[0] if torch.is_tensor(v) else
              {kk: vv[0] for kk, vv in v.items()}) for k, v in p.items()}
-    x = torch.randn((64, 256), generator=torch.Generator(
-        device=cuda).manual_seed(1), device=cuda)
-    with torch.inference_mode():
-        got, aux = moe.routed(cfg, p, x)
-        want, aux_w = moe.routed_dense_plain(cfg, p, x)
-        full, _ = moe.moe_ffn(cfg, p, x[None])
-    scale = float(want.abs().max())
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
-    torch.testing.assert_close(aux, aux_w, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(
-        full[0], want + moe.shared_expert_ffn(cfg, p, x), rtol=1e-5,
-        atol=1e-5 * float(full.abs().max()))
+    limit = moe.GROUPED_MAX_ASSIGN
+    for T in (4, 64):
+        x = torch.randn((T, 256), generator=torch.Generator(
+            device=cuda).manual_seed(T), device=cuda)
+        for path in ("grouped", "sorted"):
+            moe.GROUPED_MAX_ASSIGN = 1 << 30 if path == "grouped" else 0
+            n0 = tmx.moe_experts.launches
+            try:
+                with torch.inference_mode():
+                    got, aux = moe.routed(cfg, p, x)
+                    want, aux_w = moe.routed_dense_plain(cfg, p, x)
+                    full, _ = moe.moe_ffn(cfg, p, x[None])
+            finally:
+                moe.GROUPED_MAX_ASSIGN = limit
+            assert tmx.moe_experts.launches - n0 == \
+                (2 if path == "grouped" else 0)
+            scale = float(want.abs().max())
+            torch.testing.assert_close(got, want, rtol=1e-5,
+                                       atol=1e-5 * scale)
+            torch.testing.assert_close(aux, aux_w, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(
+                full[0], want + moe.shared_expert_ffn(cfg, p, x), rtol=1e-5,
+                atol=1e-5 * float(full.abs().max()))
+
+
+# (d, f, E, k, act): Qwen1.5-MoE-A2.7B's experts whole; DeepSeek-V3's
+# router at a narrow width; widths that are no multiple of 4 or of the
+# kernel's 32-column tiles (its scalar loads), with the other activations
+MOE_SHAPES = {"qwen": (2048, 1408, 60, 4, "silu"),
+              "deepseek-router": (256, 128, 256, 8, "silu"),
+              "ragged-gelu": (130, 70, 5, 2, "gelu"),
+              "ragged-relu": (97, 45, 6, 3, "relu")}
+
+
+def _moe_inputs(dev, dtype, T, d, f, E, k, seed):
+    """x, order, offsets, gates and the three stacked expert weights (std
+    1/sqrt(fan-in)) of a random top-k routing of T tokens."""
+    from repro_torch.models import moe
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((T, d), generator=gen, device=dev)
+    ws = [torch.randn(s, generator=gen, device=dev) / s[1] ** 0.5
+          for s in ((E, d, f), (E, d, f), (E, f, d))]
+    probs = torch.softmax(torch.randn((T, E), generator=gen, device=dev), -1)
+    gates, idx = torch.topk(probs, k, dim=-1)
+    order, offsets = moe._route(E, idx)
+    return [x.to(dtype), order, offsets, gates, *(w.to(dtype) for w in ws)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("T", [1, 4, 16, 64])
+@pytest.mark.parametrize("shape", list(MOE_SHAPES))
+def test_moe_experts_match_plain(cuda, shape, T, dtype):
+    """The grouped expert kernel against its plain version on the card
+    (the per-expert products with ``torch.matmul``, TF32 off): fp32 at
+    2e-5 of the output's scale, bf16 (fp32 sums in the kernel, bf16
+    products in the plain version) at 2e-2. One wrapper call per call."""
+    from repro_torch.kernels import moe_experts as tmx
+    d, f, E, k, act = MOE_SHAPES[shape]
+    args = _moe_inputs(cuda, dtype, T, d, f, E, k, seed=T)
+    n0 = tmx.moe_experts.launches
+    got = tmx.moe_experts(*args, act, k)
+    assert tmx.moe_experts.launches == n0 + 1
+    want = tmx.moe_experts_plain(*args, act, k)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (T * k, d)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol * scale)
+
+
+def test_moe_layer_in_a_cuda_graph(cuda):
+    """One MoE layer (router, routing, the grouped kernel, shared expert)
+    captured in a CUDA graph, which refuses any host sync, and replayed
+    after its input is rewritten in place: each replay equals eager
+    execution bit for bit."""
+    import dataclasses
+    from repro_torch.kernels import moe_experts as tmx
+    from repro_torch.models import moe
+    base = get_config("qwen2-moe-a2.7b")
+    cfg = dataclasses.replace(base, d_model=256, moe=dataclasses.replace(
+        base.moe, d_expert=128, d_shared=256))
+    p = moe.init_moe_params(torch.Generator(device=cuda).manual_seed(0),
+                            cfg, torch.float32, cuda, 1)
+    p = {k: (v[0] if torch.is_tensor(v) else
+             {kk: vv[0] for kk, vv in v.items()}) for k, v in p.items()}
+    x = torch.randn((1, 4, 256), device=cuda)
+
+    def run():
+        with torch.inference_mode():
+            return moe.moe_ffn(cfg, p, x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # build, attributes, allocator
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n0 = tmx.moe_experts.launches
+    with torch.cuda.graph(graph):
+        outs = run()
+    assert tmx.moe_experts.launches == n0 + 1
+    for seed in (1, 2):
+        x.copy_(torch.randn(x.shape, generator=torch.Generator(
+            device=cuda).manual_seed(seed), device=cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(outs, run()):
+            assert torch.equal(a, b)
 
 
 def test_mla_paged_matches_dense_on_card(cuda):

@@ -1,9 +1,10 @@
 """The port's tracer (``repro_torch.tracing``): nothing recorded while
 off; on, one query of naive-RAG over a reduced Qwen1.5-MoE core LLM yields
 the span tree query -> prim.wait / prim.run -> batch -> llm.decode ->
-llm.step -> moe.dispatch -> readback, with its ids and counts; the buffer
-drops past its capacity; many threads write at once without a lost or
-misparented record."""
+llm.step -> moe.dispatch (the grouped path, which reads nothing back),
+with its ids and counts, every dispatch on the path the crossover gives
+it; the buffer drops past its capacity; many threads write at once
+without a lost or misparented record."""
 import sys
 import threading
 
@@ -15,6 +16,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.core.apps import build_engines, naive_rag
 from repro_torch.core.teola import Teola
 from repro_torch.engines.llm_engine import LLMEngine
+from repro_torch.models import moe
 from repro_torch.training.data import doc_corpus
 
 QUESTION = "what is fact 3 about optics"
@@ -87,17 +89,27 @@ def test_span_tree_of_one_query(traced):
                     and r["name"] == "moe.dispatch"]
             assert len(moes) == traced["cfg"].num_layers
             for m in moes:
-                (rb,) = [r for r in recs if r["parent"] == m["id"]]
-                assert rb["name"] == "readback"
-                assert m["start"] <= rb["start"] <= rb["end"] <= m["end"]
-                assert m["T"] == dec["B"] and 1 <= m["experts"] <= 4
+                # a decode step's experts run on the grouped path, which
+                # reads nothing back and so cannot count the experts
+                assert not [r for r in recs if r["parent"] == m["id"]]
+                assert m["path"] == "grouped" and "experts" not in m
+                assert m["T"] == dec["B"]
                 assert st["start"] <= m["start"] and m["end"] <= st["end"]
+    # every dispatch of the query (prefills too) is on the path its T*k
+    # gives it; only the sorted path reads back
+    k = traced["cfg"].moe.top_k
+    for m in _by(recs, "moe.dispatch"):
+        grouped = m["T"] * k <= moe.GROUPED_MAX_ASSIGN
+        assert m["path"] == ("grouped" if grouped else "sorted")
+        assert grouped == (not [r for r in recs if r["parent"] == m["id"]])
     assert {r["thread"] for r in _by(recs, "llm.step")} == \
         {r["thread"] for r in _by(recs, "batch")
          if r["engine"] == "core_llm"}
 
 
 def test_readbacks_per_step_are_moe_layers_plus_one(traced):
+    """A decode step reads back its tokens once; its MoE layers, on the
+    grouped path, add none (the sorted path added one a layer)."""
     recs = traced["recs"]
     kids = {}
     for r in recs:
@@ -108,8 +120,7 @@ def test_readbacks_per_step_are_moe_layers_plus_one(traced):
                    for c in kids.get(r["id"], []))
     steps = _by(recs, "llm.step")
     assert steps
-    assert {readbacks(st) for st in steps} == \
-        {traced["cfg"].num_layers + 1}
+    assert {readbacks(st) for st in steps} == {1}
 
 
 def test_wait_and_run_make_up_each_node_span(traced):
